@@ -1,0 +1,73 @@
+"""ResNet-18 scene classifier for candidate re-ranking (port of
+pixelsynth_tpu/models/classifier.py), loaded from a `classifier` tree in
+the `load_classifier_npz` layout (params + batch_stats)."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from pixelsynth_tpu_torch.models.layers import BatchNorm, Conv, Dense, FlaxNamed
+
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+
+
+def classifier_entropy(logits: torch.Tensor) -> torch.Tensor:
+    """Entropy of the softmax per candidate (z_buffermodel.py:259-261)."""
+    p = torch.softmax(logits, dim=-1)
+    return -(p * torch.log(torch.clamp(p, min=1e-12))).sum(-1)
+
+
+def preprocess_for_classifier(img01: torch.Tensor) -> torch.Tensor:
+    """[0,1] NHWC image -> 224x224 ImageNet-normalized NHWC
+    (jax.image.resize bilinear, antialiased when shrinking)."""
+    x = F.interpolate(img01.permute(0, 3, 1, 2), size=(224, 224),
+                      mode="bilinear", align_corners=False,
+                      antialias=img01.shape[1] > 224)
+    mean = torch.as_tensor(IMAGENET_MEAN, device=x.device)
+    std = torch.as_tensor(IMAGENET_STD, device=x.device)
+    return (x.permute(0, 2, 3, 1) - mean) / std
+
+
+class BasicBlock(FlaxNamed):
+    def __init__(self, cin, features, stride=1):
+        super().__init__()
+        self.add("Conv", Conv(cin, features, 3, stride, 1, bias=False))
+        self.add("BatchNorm", BatchNorm(features))
+        self.add("Conv", Conv(features, features, 3, 1, 1, bias=False))
+        self.add("BatchNorm", BatchNorm(features))
+        self.proj = stride != 1 or cin != features
+        if self.proj:
+            self.add("Conv", Conv(cin, features, 1, stride, 0, bias=False))
+            self.add("BatchNorm", BatchNorm(features))
+
+    def forward(self, x):
+        h = torch.relu(self.BatchNorm_0(self.Conv_0(x)))
+        h = self.BatchNorm_1(self.Conv_1(h))
+        if self.proj:
+            x = self.BatchNorm_2(self.Conv_2(x))
+        return torch.relu(h + x)
+
+
+class ResNet18(FlaxNamed):
+    def __init__(self, num_classes=365):
+        super().__init__()
+        self.add("Conv", Conv(3, 64, 7, 2, 3, bias=False))
+        self.add("BatchNorm", BatchNorm(64))
+        cin = 64
+        self.blocks = []
+        for feats, stride in [(64, 1), (64, 1), (128, 2), (128, 1),
+                              (256, 2), (256, 1), (512, 2), (512, 1)]:
+            self.blocks.append(self.add("BasicBlock", BasicBlock(cin, feats, stride)))
+            cin = feats
+        self.add("Dense", Dense(512, num_classes))
+
+    def forward(self, x):
+        """x (B, 224, 224, 3) normalized NHWC -> (B, num_classes) logits."""
+        h = torch.relu(self.BatchNorm_0(self.Conv_0(x.permute(0, 3, 1, 2))))
+        h = F.max_pool2d(h, 3, 2, 1)
+        for blk in self.blocks:
+            h = blk(h)
+        return self.Dense_0(h.mean((2, 3)))

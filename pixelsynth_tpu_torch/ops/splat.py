@@ -1,0 +1,289 @@
+"""Soft z-buffer point splatter (port of pixelsynth_tpu/ops/splat.py) with
+kernel K2 for the blend.
+
+  1. Bin (PyTorch): each point's radius-r footprint overlaps <= 4 image
+     tiles; the whole batch's (image, tile, depth-bucket) keys, packed into
+     31 bits, go through ONE stable sort, segment offsets come from a binary
+     search, and a fixed-capacity gather yields every tile's z-sorted slot
+     list (`_bin_points_batched`, bit-equal to the JAX binning).
+  2. Blend (K2): per tile, radius coverage, the K-nearest-in-z cap,
+     alpha = (1 - sqrt(clip(d, 1e-3, 1)))^tau and alphacomposite / wsum /
+     wsumnorm accumulation, plus the coverage map (`blend_tiles`: the CUDA
+     kernel of csrc/splat_blend.cu on the card, `blend_tiles_plain` =
+     `_blend_tiles` on the CPU).
+  3. The background mask is the dilated (max-filtered) uncovered map.
+
+This slice serves inference only: the K2 wrapper raises for inputs that
+require grad.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from pixelsynth_tpu_torch.config import SplatConfig
+from pixelsynth_tpu_torch.ops import _cuda
+
+LAUNCHES = {"splat_blend": 0}
+_ACCUM = {"alphacomposite": 0, "wsum": 1, "wsumnorm": 2}
+
+
+def _alpha_consts(W: int, cfg: SplatConfig) -> Tuple[float, float]:
+    """(scale s*s, radius_ndc**rad_pow) of the NDC alpha (splat.py:52-64)."""
+    s = 2.0 / W
+    return s * s, (cfg.radius * s) ** cfg.rad_pow
+
+
+def _alpha_from_dist2(dist2_px, W: int, cfg: SplatConfig):
+    ss, denom = _alpha_consts(W, cfg)
+    d = torch.clamp(dist2_px * ss / denom, 1e-3, 1.0)
+    return (1.0 - torch.sqrt(d)) ** cfg.tau
+
+
+def dilate_mask(mask: torch.Tensor, ksize: int) -> torch.Tensor:
+    """Binary dilation with a ksize x ksize window; (B, H, W) -> bool."""
+    pad = ksize // 2
+    out = F.max_pool2d(mask.float()[:, None], ksize, 1, pad)
+    return out[:, 0] > 0
+
+
+def _tile_entries(points, valid, W: int, cfg: SplatConfig):
+    """(B, N, 3), (B, N) -> tile_id (B, 4, N) int32 (nT where masked),
+    emask (B, 4, N), on_screen (B, N)."""
+    TS = cfg.tile_size
+    nside = W // TS
+    nT = nside * nside
+    r = cfg.radius
+    col, row, depth = points[..., 0], points[..., 1], points[..., 2]
+    on_screen = (valid & (col >= -r) & (col <= W - 1 + r) & (row >= -r)
+                 & (row <= W - 1 + r) & (depth > 0))
+    tx0 = torch.floor((col - r) / TS).to(torch.int32)
+    tx1 = torch.floor((col + r) / TS).to(torch.int32)
+    ty0 = torch.floor((row - r) / TS).to(torch.int32)
+    ty1 = torch.floor((row + r) / TS).to(torch.int32)
+    txs = torch.stack([tx0, tx1, tx0, tx1], 1)
+    tys = torch.stack([ty0, ty0, ty1, ty1], 1)
+    dup = torch.stack([torch.ones_like(on_screen), tx1 != tx0, ty1 != ty0,
+                       (tx1 != tx0) & (ty1 != ty0)], 1)
+    in_rng = (txs >= 0) & (txs < nside) & (tys >= 0) & (tys < nside)
+    emask = dup & in_rng & on_screen[:, None, :]
+    tile_id = torch.where(emask, tys * nside + txs,
+                          torch.full_like(txs, nT)).to(torch.int32)
+    return tile_id, emask, on_screen
+
+
+def _bin_points_batched(points, valid, W: int, cfg: SplatConfig,
+                        return_counts: bool = False):
+    """Whole-batch binning with one stable sort of packed 31-bit keys.
+
+    points (B, N, 3) [col, row, depth]; valid (B, N) bool.  Returns
+    (slot_point_idx (B, nT, M) int64, slot_valid (B, nT, M) bool)
+    [, entries per tile (B, nT) when return_counts]."""
+    B, N, _ = points.shape
+    nside = W // cfg.tile_size
+    nT = nside * nside
+    M = cfg.max_points_per_tile
+    dev = points.device
+    tile_id, emask, on_screen = _tile_entries(points, valid, W, cfg)
+
+    seg_bits = max(1, (B * (nT + 1) - 1).bit_length())
+    bucket_bits = min(16, 31 - seg_bits)
+    n_buckets = 1 << bucket_bits
+    depth = points[..., 2]
+    big = torch.tensor(3.0e38, dtype=torch.float32, device=dev)
+    dmin = torch.where(on_screen, depth, big).amin(1)
+    dmax = torch.where(on_screen, depth, -big).amax(1)
+    scale = (n_buckets - 1) / torch.clamp(dmax - dmin, min=1e-6)
+    bucket = torch.clamp((depth - dmin[:, None]) * scale[:, None], 0,
+                         n_buckets - 1).to(torch.int32)
+
+    img = torch.arange(B, dtype=torch.int32, device=dev)[:, None, None]
+    seg = img * (nT + 1) + tile_id
+    key = (seg << bucket_bits) + bucket[:, None, :]
+    point_idx = torch.arange(N, device=dev).expand(B, 4, N)
+    sorted_key, perm = torch.sort(key.reshape(-1), stable=True)
+    sorted_point = point_idx.reshape(-1)[perm]
+    sorted_seg = sorted_key >> bucket_bits
+
+    want_seg = (torch.arange(B, dtype=torch.int32, device=dev)[:, None] * (nT + 1)
+                + torch.arange(nT, dtype=torch.int32, device=dev)[None])
+    offsets = torch.searchsorted(sorted_key, want_seg.reshape(-1) << bucket_bits)
+    offsets = offsets.reshape(B, nT)
+    E = B * 4 * N
+    slot = torch.clamp(offsets[..., None] + torch.arange(M, device=dev), 0, E - 1)
+    slot_point_idx = sorted_point[slot]
+    slot_valid = sorted_seg[slot] == want_seg[..., None]
+    if not return_counts:
+        return slot_point_idx, slot_valid
+    ends = torch.searchsorted(sorted_key, (want_seg.reshape(-1) + 1) << bucket_bits)
+    return slot_point_idx, slot_valid, ends.reshape(B, nT) - offsets
+
+
+def blend_tiles_plain(slot_pts, slot_feats, slot_valid, tile_origin, W: int,
+                      cfg: SplatConfig):
+    """`_blend_tiles` (splat.py:395-446), in groups of cfg.tile_group tiles.
+
+    slot_pts (T, M, >=2); slot_feats (T, M, C); slot_valid (T, M) bool;
+    tile_origin (T, 2) [row0, col0].  Returns (out (T, TS, TS, C) f32,
+    covered (T, TS, TS) bool)."""
+    TS = cfg.tile_size
+    P = TS * TS
+    dev = slot_pts.device
+    py = (torch.arange(P, device=dev) // TS).float()
+    px = (torch.arange(P, device=dev) % TS).float()
+    outs, covs = [], []
+    G = max(1, cfg.tile_group)
+    for g0 in range(0, slot_pts.shape[0], G):
+        pts = slot_pts[g0:g0 + G]
+        fts = slot_feats[g0:g0 + G] * slot_valid[g0:g0 + G, :, None]
+        vm = slot_valid[g0:g0 + G]
+        org = tile_origin[g0:g0 + G]
+        rows = py[None] + org[:, 0:1]
+        cols = px[None] + org[:, 1:2]
+        dx = cols[:, :, None] - pts[:, None, :, 0]
+        dy = rows[:, :, None] - pts[:, None, :, 1]
+        dist2 = dx * dx + dy * dy                               # (G, P, M)
+        cover = (dist2 < cfg.radius * cfg.radius) & vm[:, None, :]
+        rank = torch.cumsum(cover.to(torch.int32), dim=2)
+        keep = cover & (rank <= cfg.pp_pixel)
+        alpha = _alpha_from_dist2(dist2, W, cfg) * keep.float()
+        if cfg.accumulation == "alphacomposite":
+            trans = torch.cumprod(1.0 - alpha, dim=2)
+            excl = torch.cat([torch.ones_like(trans[..., :1]), trans[..., :-1]], 2)
+            w = alpha * excl
+        elif cfg.accumulation == "wsum":
+            w = alpha
+        elif cfg.accumulation == "wsumnorm":
+            w = alpha / torch.clamp(alpha.sum(2, keepdim=True), min=1e-4)
+        else:
+            raise ValueError(f"unknown accumulation {cfg.accumulation}")
+        outs.append((w @ fts).reshape(-1, TS, TS, fts.shape[-1]))
+        covs.append(cover.any(2).reshape(-1, TS, TS))
+    return torch.cat(outs), torch.cat(covs)
+
+
+def _splat_lib():
+    lib = _cuda.load("splat_blend")
+    if not getattr(lib, "_typed", False):
+        P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.splat_blend.argtypes = [P] * 6 + [I] * 4 + [Fl] * 3 + [I] * 2 + [P]
+        lib.splat_blend.restype = I
+        lib._typed = True
+    return lib
+
+
+def blend_tiles(slot_pts, slot_feats, slot_valid, tile_origin, W: int,
+                cfg: SplatConfig):
+    """K2.  Same contract as `blend_tiles_plain`; launches the CUDA kernel
+    for CUDA tensors (slot_pts (T, M, 3) f32, slot_feats (T, M, C<=8) f32,
+    slot_valid (T, M) bool, tile_origin (T, 2) f32, all contiguous)."""
+    if not slot_pts.is_cuda:
+        return blend_tiles_plain(slot_pts, slot_feats, slot_valid,
+                                 tile_origin, W, cfg)
+    T, M, _ = slot_pts.shape
+    C = slot_feats.shape[-1]
+    TS = cfg.tile_size
+    dev = slot_pts.device
+    if slot_pts.requires_grad or slot_feats.requires_grad:
+        raise ValueError("the K2 blend serves inference only: no gradient")
+    if C > 8 or TS * TS > 1024 or cfg.accumulation not in _ACCUM:
+        raise ValueError(f"K2 takes C <= 8, TS <= 32 and one of {list(_ACCUM)}")
+    _cuda.require(slot_pts, "slot_pts", dtype=torch.float32, shape=(T, M, 3))
+    _cuda.require(slot_feats, "slot_feats", dtype=torch.float32,
+                  shape=(T, M, C), device=dev)
+    _cuda.require(slot_valid, "slot_valid", dtype=torch.bool, shape=(T, M),
+                  device=dev)
+    _cuda.require(tile_origin, "tile_origin", dtype=torch.float32,
+                  shape=(T, 2), device=dev)
+    out = torch.empty((T, TS, TS, C), dtype=torch.float32, device=dev)
+    cov = torch.empty((T, TS, TS), dtype=torch.bool, device=dev)
+    ss, denom = _alpha_consts(W, cfg)
+    P = _cuda.ptr
+    rc = _splat_lib().splat_blend(
+        P(slot_pts), P(slot_feats), P(slot_valid), P(tile_origin), P(out),
+        P(cov), T, M, C, TS, float(cfg.radius * cfg.radius), ss / denom,
+        float(cfg.tau), int(cfg.pp_pixel), _ACCUM[cfg.accumulation],
+        _cuda.stream_of(slot_pts))
+    _cuda.check(rc, "splat_blend")
+    LAUNCHES["splat_blend"] += 1
+    return out, cov
+
+
+def tile_origins(W: int, TS: int, device) -> torch.Tensor:
+    nside = W // TS
+    t = torch.arange(nside * nside, device=device)
+    return torch.stack([(t // nside) * TS, (t % nside) * TS], -1).float()
+
+
+def gather_slots(points, feats, slot_idx, slot_valid):
+    """Per-tile slot lists: (B, N, 3), (B, N, C), (B, nT, M) ->
+    (B*nT, M, 3), (B*nT, M, C) (invalid slots' features zeroed),
+    (B*nT, M)."""
+    B, nT, M = slot_idx.shape
+    flat = slot_idx.reshape(B, nT * M)
+    spts = torch.gather(points, 1, flat[..., None].expand(-1, -1, 3))
+    sfts = torch.gather(feats, 1, flat[..., None].expand(-1, -1, feats.shape[-1]))
+    sfts = sfts * slot_valid.reshape(B, nT * M, 1)
+    return (spts.reshape(B * nT, M, 3).contiguous(),
+            sfts.reshape(B * nT, M, -1).contiguous().float(),
+            slot_valid.reshape(B * nT, M).contiguous())
+
+
+def splat(points, feats, valid=None, *, W: int, cfg: SplatConfig = None):
+    """Splat (B, N, 3) [col, row, depth] points with (B, N, C) features
+    into (B, W, W, C) f32 + the (B, W, W) bool background mask (point-free
+    pixels, dilated by the background-smoothing max filter)."""
+    cfg = cfg or SplatConfig()
+    B, N, _ = points.shape
+    if valid is None:
+        valid = torch.ones((B, N), dtype=torch.bool, device=points.device)
+    TS = cfg.tile_size
+    nside = W // TS
+    nT = nside * nside
+    C = feats.shape[-1]
+    slot_idx, slot_valid = _bin_points_batched(points, valid, W, cfg)
+    spts, sfts, svld = gather_slots(points.float(), feats.float(), slot_idx,
+                                    slot_valid)
+    org = tile_origins(W, TS, points.device).repeat(B, 1)
+    out, cov = blend_tiles(spts, sfts, svld, org, W, cfg)
+    img = out.reshape(B, nside, nside, TS, TS, C).permute(0, 1, 3, 2, 4, 5)
+    img = img.reshape(B, W, W, C)
+    covered = cov.reshape(B, nside, nside, TS, TS).permute(0, 1, 3, 2, 4)
+    covered = covered.reshape(B, W, W)
+    return img, dilate_mask(~covered, cfg.background_smoothing_kernel_size)
+
+
+def splat_dense(points, feats, valid=None, *, W: int, cfg: SplatConfig = None):
+    """O(W^2 x N) dense oracle with the same semantics as `splat` (for
+    tests at tiny sizes)."""
+    cfg = cfg or SplatConfig()
+    B, N, _ = points.shape
+    if valid is None:
+        valid = torch.ones((B, N), dtype=torch.bool, device=points.device)
+    outs, covs = [], []
+    P = W * W
+    py = (torch.arange(P, device=points.device) // W).float()
+    px = (torch.arange(P, device=points.device) % W).float()
+    for b in range(B):
+        order = torch.sort(points[b, :, 2], stable=True).indices
+        pts, fts, vld = points[b][order], feats[b][order], valid[b][order]
+        dist2 = (px[:, None] - pts[None, :, 0]) ** 2 + (py[:, None] - pts[None, :, 1]) ** 2
+        vld = vld & (pts[:, 2] > 0)
+        cover = (dist2 < cfg.radius * cfg.radius) & vld[None]
+        keep = cover & (torch.cumsum(cover.int(), 1) <= cfg.pp_pixel)
+        alpha = _alpha_from_dist2(dist2, W, cfg) * keep.float()
+        if cfg.accumulation == "alphacomposite":
+            trans = torch.cumprod(1.0 - alpha, 1)
+            w = alpha * torch.cat([torch.ones_like(trans[:, :1]), trans[:, :-1]], 1)
+        elif cfg.accumulation == "wsum":
+            w = alpha
+        else:
+            w = alpha / torch.clamp(alpha.sum(1, keepdim=True), min=1e-4)
+        outs.append((w @ fts).reshape(W, W, -1))
+        covs.append(cover.any(1).reshape(W, W))
+    covered = torch.stack(covs)
+    return torch.stack(outs), dilate_mask(~covered, cfg.background_smoothing_kernel_size)

@@ -1,0 +1,35 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+These need a CUDA device and nvcc: the kernels have no CPU mode, so on a
+machine without a card they skip.  This file imports neither JAX nor the
+JAX package, so it runs where only PyTorch is installed:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py -q
+"""
+
+import pytest
+import torch
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [32, 80])
+def test_k1_matches_plain_on_card(width):
+    """K1a/K1b at 4 candidates, 32x32 codes; F=80 is the main path's."""
+    _need_card()
+    import chip_smoke
+
+    chip_smoke.phase_k1({}, B=4, side=32, Fc=width)
+
+
+@pytest.mark.gpu
+def test_k2_matches_plain_on_card():
+    """K2, every accumulation, at the bench protocol's size."""
+    _need_card()
+    import chip_smoke
+
+    chip_smoke.phase_k2({})
