@@ -8,16 +8,27 @@ prints the final ok line):
   1. build the CUDA kernels (all nvcc processes started together) and
      print the toolchain and the card;
   2. each kernel against its plain PyTorch version at the main path's
-     shapes (K1: pop 16, 32x32 codes, F=80, bf16; K2: W=256, 2 images x
-     131072 points, each accumulation), timed with CUDA events;
-  3. the main path at full width: one `generate_view` at the Config()
+     shapes, timed with CUDA events (K1: pop 16, 32x32 codes, F=80, bf16;
+     K2: W=256, 2 images x 131072 points, each accumulation; K3: pop 16,
+     32x32, (Cin, Cout) = (160, 80), (160, 160) and, dilation 2, (80, 80),
+     bf16 and float32; K4: pop 16, 32x32, F=80, with and without the skip;
+     K5: the binning keys of 131072 points, (1, 2^19), and (2, 2^17),
+     exact against torch.sort(stable=True), which is also its library
+     yardstick);
+  3. the default path at full width: one `generate_view` at the Config()
      defaults (W=256, 32x32 codes, nr_filters 80, speculative 12) with
-     seeded random weights and 16 candidates; the kernels' launch counts
-     are zeroed just before the timed view and read just after;
-  4. the trained relay checkpoint (evidence/relay/stitched.npz, W=128)
+     seeded random weights and 16 candidates (K1, K2);
+  4. the per-layer engines: the AR fill (`ar_sample` over every background
+     cell, pop 16) through the module path (32 K3 launches a forward) and
+     through the per-layer kernel engine (14 K4 + 4 K3), each held to the
+     K1 path by argmax agreement;
+  5. the same view with sample_backend="pallas" and sort_backend="pallas"
+     (K3, K5, K2), its binning tables held to the library-sort binner's;
+  6. the trained relay checkpoint (evidence/relay/stitched.npz, W=128)
      through the weight bridge, walking directions R and L.
-It ends with a `kernels` JSON line, the card's name and power limit, and
-the result line {"ok": true, "device": {...}}.
+Each path's launch counts are zeroed just before it is driven and read
+just after.  The script ends with a `kernels` JSON line, the card's name
+and power limit, and the result line {"ok": true, "device": {...}}.
 
 TF32 is off for both matmuls and convolutions (set below), so float32
 references are full float32.
@@ -36,6 +47,7 @@ PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor cores
 PEAK_F32_FLOPS = 67e12     # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 DEVICE = "cuda"
+SOURCES = ["lmconv_fused", "splat_blend", "masked_conv", "gated_resnet", "sort_kv"]
 
 
 def log(*a):
@@ -76,7 +88,7 @@ def phase_build():
     from pixelsynth_tpu_torch.ops import _cuda
 
     t0 = time.perf_counter()
-    logs = _cuda.build(["lmconv_fused", "splat_blend"], verbose=True)
+    logs = _cuda.build(SOURCES, verbose=True)
     log(f"[build] nvcc sm_90a, {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -88,27 +100,51 @@ def phase_build():
     log(f"[card] {card_line()}")
 
 
-def _k1_inputs(B=16, side=32, Fc=80, seed=0):
+def _entry(name, source, replaces, err, ms, pms, t_ops, t_bytes, library_ms=None):
+    return {"name": name, "route": "cuda",
+            "source": f"pixelsynth_tpu_torch/csrc/{source}",
+            "replaces": replaces, "max_abs_err": err, "ms": ms, "plain_ms": pms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library_ms}
+
+
+def _half_grid(side=32):
+    """A code grid whose right half is to be outpainted: (order (1, HW, 2),
+    masks (1, 3, 9, HW), bg_ds (1, side, side))."""
     import numpy as np
     import torch
-    from pixelsynth_tpu_torch.config import Config
     from pixelsynth_tpu_torch.ops.distance_transform import signed_distance_field
-    from pixelsynth_tpu_torch.ops.lmconv_fused import (
-        embed_input, fold_boundary_masks, pack_lmconv_params)
     from pixelsynth_tpu_torch.ops.orders import orders_and_masks
+
+    bg = np.zeros((1, side, side), np.float32)
+    bg[:, :, side // 2:] = 1.0
+    bg_t = torch.as_tensor(bg, device=DEVICE)
+    order, masks = orders_and_masks(signed_distance_field(1.0 - bg_t, bg_t))
+    return order, masks, bg_t
+
+
+def _pixelcnn_params(Fc=80, seed=0):
+    """Flax-named PixelCNN arrays at width Fc from a seed (CPU tensors)."""
+    import torch
+    from pixelsynth_tpu_torch.config import Config
     from pixelsynth_tpu_torch.pipeline import random_pixelcnn_params
 
     cfg = Config()
     cfg.model.lmconv.nr_filters = Fc
-    gen = torch.Generator().manual_seed(seed)
-    packed = pack_lmconv_params(random_pixelcnn_params(cfg, gen), nr_resnet=2,
-                                device=DEVICE)
+    return cfg, random_pixelcnn_params(cfg, torch.Generator().manual_seed(seed))
+
+
+def _k1_inputs(B=16, side=32, Fc=80, seed=0):
+    import numpy as np
+    import torch
+    from pixelsynth_tpu_torch.ops.lmconv_fused import (
+        embed_input, fold_boundary_masks, pack_lmconv_params)
+
+    _, params = _pixelcnn_params(Fc, seed)
+    packed = pack_lmconv_params(params, nr_resnet=2, device=DEVICE)
     rng = np.random.default_rng(seed)
-    bg = np.zeros((1, side, side), np.float32)
-    bg[:, :, side // 2:] = 1.0          # right half to outpaint
-    fg_t = torch.as_tensor(1.0 - bg, device=DEVICE)
-    dist = signed_distance_field(fg_t, torch.as_tensor(bg, device=DEVICE))
-    _, masks = orders_and_masks(dist)
+    _, masks, _ = _half_grid(side)
     masks = masks.repeat(B, 1, 1, 1)
     codes = torch.as_tensor(rng.integers(0, 512, (B, side, side)), device=DEVICE)
     filled = torch.as_tensor(rng.random((B, side, side)) < 0.6, device=DEVICE).float()
@@ -185,14 +221,9 @@ def phase_k1(report, B=16, side=32, Fc=80):
             ("lmconv_up", up_ms, up_plain_ms, f_up, by_up, err_up, 151),
             ("lmconv_down", dn_ms, dn_plain_ms, f_dn, by_dn, err_dn, 178)):
         t_ops, t_bytes = fl / PEAK_BF16_FLOPS * 1e3, by / PEAK_BYTES * 1e3
-        report[name] = {
-            "name": name, "route": "cuda",
-            "source": "pixelsynth_tpu_torch/csrc/lmconv_fused.cu",
-            "replaces": f"pixelsynth_tpu/ops/lmconv_fused.py:{line}",
-            "max_abs_err": err, "ms": ms, "plain_ms": pms,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None}
+        report[name] = _entry(name, "lmconv_fused.cu",
+                              f"pixelsynth_tpu/ops/lmconv_fused.py:{line}",
+                              err, ms, pms, t_ops, t_bytes)
         log(f"[K1] {name}: {ms:.3f} ms kernel, {pms:.3f} ms plain, "
             f"{fl / 1e9:.2f} GFLOP needed, bound {max(t_ops, t_bytes):.4f} ms")
 
@@ -254,16 +285,185 @@ def phase_k2(report, W=256, N=65536 * 2):
     T, M = svld.shape
     by = T * M * (3 * 4 + 3 * 4 + 1) + T * P * (3 * 4 + 1)
     t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, by / PEAK_BYTES * 1e3
-    report["splat_blend"] = {
-        "name": "splat_blend", "route": "cuda",
-        "source": "pixelsynth_tpu_torch/csrc/splat_blend.cu",
-        "replaces": "pixelsynth_tpu/ops/splat_pallas.py:40",
-        "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": pms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None}
+    report["splat_blend"] = _entry(
+        "splat_blend", "splat_blend.cu", "pixelsynth_tpu/ops/splat_pallas.py:40",
+        max(errs.values()), ms, pms, t_ops, t_bytes)
     log(f"[K2] splat_blend: {ms:.3f} ms kernel, {pms:.3f} ms plain, "
         f"{pairs / 1e6:.1f} M pixel x slot pairs, bound {max(t_ops, t_bytes):.4f} ms")
+
+
+def _uniform(gen, shape, bound):
+    import torch
+
+    return ((torch.rand(shape, generator=gen) * 2 - 1) * bound).to(DEVICE)
+
+
+def phase_k3(report, B=16, side=32, Fc=80):
+    """K3 at the trunk's three conv shapes, on the masks of `_half_grid`:
+    the bf16 kernel and the float32 kernel against the plain version."""
+    import torch
+    from pixelsynth_tpu_torch.ops import masked_conv_kernel as K3
+    from pixelsynth_tpu_torch.ops.lmconv_fused import fold_boundary_masks
+
+    _, masks, _ = _half_grid(side)
+    masks = masks.repeat(B, 1, 1, 1)
+    gen = torch.Generator().manual_seed(3)
+    # (Cin, Cout, dilation, which mask, launches per module-path forward)
+    shapes = [(2 * Fc, Fc, 1, 1, 14), (2 * Fc, 2 * Fc, 1, 1, 14), (Fc, Fc, 2, 2, 4)]
+    tot = {"ms": 0.0, "pms": 0.0, "ops": 0.0, "bytes": 0.0, "n": 0}
+    worst = 0.0
+    for cin, cout, dil, mi, n_fwd in shapes:
+        x = torch.randn((B, side, side, cin), generator=gen).to(DEVICE)
+        bound = 1.0 / (9 * cin) ** 0.5
+        w = _uniform(gen, (9, cin, cout), bound)
+        b = _uniform(gen, (cout,), bound)
+        pm = K3.prepare_mask(masks[:, mi])
+        kw = dict(dilation=dil)
+        out_k = K3.locally_masked_conv2d_kernel(x, pm, w, b, compute_dtype="bfloat16", **kw)
+        out_p = K3.locally_masked_conv2d_plain(x, pm, w, b, compute_dtype="bfloat16", **kw)
+        f32_k = K3.locally_masked_conv2d_kernel(x, pm, w, b, compute_dtype="float32", **kw)
+        f32_p = K3.locally_masked_conv2d_plain(x, pm, w, b, compute_dtype="float32", **kw)
+        torch.cuda.synchronize()
+        err = float((out_k - out_p).abs().max())
+        err32 = float((f32_k - f32_p).abs().max())
+        ref = float(out_p.abs().max())
+        # bf16: both sides round the operands to bf16 and sum in f32, in
+        # different orders; 2% of the output's range as for K1.  f32: only
+        # the summation order differs, so 1e-4 holds the indexing itself.
+        tol = 0.02 * max(1.0, ref)
+        log(f"[K3] ({cin},{cout}) d{dil}: bf16 max|kernel-plain| {err:.3e} "
+            f"(max|ref| {ref:.2f}, tol {tol:.3e}); f32 {err32:.3e} (atol 1e-4)")
+        if not (err <= tol and err32 <= 1e-4):
+            raise AssertionError(f"K3 ({cin},{cout}) disagrees with its plain version")
+        worst = max(worst, err)
+        wb = w.to(torch.bfloat16)
+        ms = time_ms(lambda: K3.locally_masked_conv2d_kernel(
+            x, pm, wb, b, compute_dtype="bfloat16", **kw))
+        ms32 = time_ms(lambda: K3.locally_masked_conv2d_kernel(
+            x, pm, w, b, compute_dtype="float32", **kw), reps=3, rounds=3)
+        pms = time_ms(lambda: K3.locally_masked_conv2d_plain(
+            x, pm, w, b, compute_dtype="bfloat16", **kw), reps=3, rounds=3)
+        # active (position, tap) pairs: mask on and the tap inside the image
+        pairs = float(fold_boundary_masks(masks[:, mi], side, side, 3, dil).sum())
+        flops = 2.0 * pairs * cin * cout
+        by = (x.numel() + pm.rows.numel() + w.numel() + b.numel() + out_k.numel()) * 4
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, by / PEAK_BYTES * 1e3
+        log(f"[K3] ({cin},{cout}) d{dil}: {ms:.4f} ms bf16 kernel, {ms32:.4f} ms f32 "
+            f"kernel, {pms:.3f} ms plain, {flops / 1e9:.2f} GFLOP needed, "
+            f"{by / 1e6:.1f} MB, bound {max(t_ops, t_bytes):.4f} ms")
+        for k, v in (("ms", ms), ("pms", pms), ("ops", t_ops), ("bytes", t_bytes)):
+            tot[k] += n_fwd * v
+        tot["n"] += n_fwd
+    # one entry: the mean over the 32 launches of a module-path forward
+    # (14 + 14 + 4 of the three shapes), bound taken shape by shape
+    n = tot["n"]
+    report["masked_conv"] = _entry(
+        "masked_conv", "masked_conv.cu", "pixelsynth_tpu/ops/masked_conv_pallas.py:26",
+        worst, tot["ms"] / n, tot["pms"] / n, tot["ops"] / n, tot["bytes"] / n)
+    log(f"[K3] masked_conv: mean of a forward's {n} launches {tot['ms'] / n:.4f} ms "
+        f"(plain {tot['pms'] / n:.3f} ms)")
+
+
+def phase_k4(report, B=16, side=32, Fc=80):
+    import torch
+    from pixelsynth_tpu_torch.ops import gated_resnet_kernel as K4
+    from pixelsynth_tpu_torch.ops.lmconv_fused import fold_boundary_masks
+    from pixelsynth_tpu_torch.ops.masked_conv_kernel import prepare_mask
+
+    _, masks, _ = _half_grid(side)
+    masks = masks.repeat(B, 1, 1, 1)
+    pm = prepare_mask(masks[:, 1])
+    gen = torch.Generator().manual_seed(4)
+    og = torch.randn((B, side, side, Fc), generator=gen).to(DEVICE)
+    a = torch.randn((B, side, side, Fc), generator=gen).to(DEVICE)
+    bound = 1.0 / (18 * Fc) ** 0.5
+    w1, b1 = _uniform(gen, (9, 2 * Fc, Fc), bound), _uniform(gen, (Fc,), bound)
+    w2, b2 = _uniform(gen, (9, 2 * Fc, 2 * Fc), bound), _uniform(gen, (2 * Fc,), bound)
+    ws, bs = _uniform(gen, (2 * Fc, Fc), (2 * Fc) ** -0.5), _uniform(gen, (Fc,), 0.1)
+    pairs = float(fold_boundary_masks(masks[:, 1], side, side, 3, 1).sum())
+    log(f"[K4] {side * side // 128} blocks an image; images in one round of a launch "
+        f"on this card: {K4.images_at_once(side, side, Fc)} (batch {B})")
+    res = {}
+    for skip in (False, True):
+        args = (og, a if skip else None, pm, w1, b1, ws if skip else None,
+                bs if skip else None, w2, b2)
+        out_k = K4.gated_resnet_kernel(*args)
+        out_p = K4.gated_resnet_plain(*args)
+        torch.cuda.synchronize()
+        err = float((out_k - out_p).abs().max())
+        ref = float(out_p.abs().max())
+        # bf16 dot operands on both sides; a conv1 sum that straddles a bf16
+        # rounding boundary moves conv2's operand by one bf16 ulp, and two
+        # PONOs rescale it: 2% of the output's range, as for K1
+        tol = 0.02 * max(1.0, ref)
+        log(f"[K4] skip={skip}: max|kernel-plain| {err:.3e} (max|ref| {ref:.2f}, "
+            f"tol {tol:.3e}), mean {float((out_k - out_p).abs().mean()):.3e}")
+        if not err <= tol:
+            raise AssertionError("K4 disagrees with its plain version")
+        bf = torch.bfloat16
+        fast = (og, args[1], pm, w1.to(bf), b1, ws.to(bf) if skip else None,
+                args[6], w2.to(bf), b2)
+        ms = time_ms(lambda: K4.gated_resnet_kernel(*fast))
+        pms = time_ms(lambda: K4.gated_resnet_plain(*args), reps=3, rounds=3)
+        flops = 2.0 * pairs * (2 * Fc * Fc + 4 * Fc * Fc)
+        by = (og.numel() * 2 + pm.rows.numel() + w1.numel() + w2.numel()
+              + b1.numel() + b2.numel()) * 4
+        if skip:
+            flops += 2.0 * B * side * side * 2 * Fc * Fc
+            by += (a.numel() + ws.numel() + bs.numel()) * 4
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, by / PEAK_BYTES * 1e3
+        log(f"[K4] skip={skip}: {ms:.4f} ms kernel, {pms:.3f} ms plain, "
+            f"{flops / 1e9:.2f} GFLOP needed, {by / 1e6:.1f} MB, "
+            f"bound {max(t_ops, t_bytes):.4f} ms")
+        res[skip] = (err, ms, pms, t_ops, t_bytes)
+    # one entry: the mean over a forward's 14 launches (6 without, 8 with skip)
+    mean = [(6 * res[False][i] + 8 * res[True][i]) / 14 for i in range(1, 5)]
+    report["gated_resnet"] = _entry(
+        "gated_resnet", "gated_resnet.cu",
+        "pixelsynth_tpu/ops/gated_resnet_pallas.py:71",
+        max(res[False][0], res[True][0]), *mean)
+
+
+def phase_k5(report, W=256):
+    """K5 on real binning keys: `_k2_inputs`-style points through the
+    binner's key function, at (1, 2^19) and (2, 2^17); exact."""
+    import torch
+    from pixelsynth_tpu_torch.config import SplatConfig
+    from pixelsynth_tpu_torch.ops import sort_kernel as K5
+    from pixelsynth_tpu_torch.ops.splat import _image_sort_keys
+
+    cfg = SplatConfig()
+    for B, N, main in ((1, 65536 * 2, True), (2, 32768, False)):
+        _, pts, _, vld = _k2_inputs(W=W, N=N)
+        keys, _ = _image_sort_keys(pts[:B], vld[:B], W, cfg)
+        E = keys.shape[1]
+        sk, sv = K5.sort_kv_kernel(keys)
+        ref_k, ref_v = torch.sort(keys, dim=1, stable=True)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(sk, ref_k)) and bool(torch.equal(sv.long(), ref_v))
+        n_bad = int((sk != ref_k).sum() + (sv.long() != ref_v).sum())
+        log(f"[K5] ({B}, 2^{E.bit_length() - 1}) keys, {int(keys.unique().numel())} "
+            f"distinct: equal to torch.sort(stable=True) in keys and indices: {same}")
+        if not same:
+            raise AssertionError(f"K5 differs from a stable sort in {n_bad} places")
+        if not main:
+            continue
+        pk, pv = K5.sort_kv_plain(keys)
+        if not (torch.equal(pk, sk) and torch.equal(pv, sv)):
+            raise AssertionError("K5 differs from its plain network")
+        ms = time_ms(lambda: K5.sort_kv_kernel(keys))
+        pms = time_ms(lambda: K5.sort_kv_plain(keys), warmup=1, reps=1, rounds=3)
+        lib = time_ms(lambda: torch.sort(keys, dim=1, stable=True))
+        # bytes: each key read once (4 B), each sorted key and index written
+        # once (8 B): 12 B an element; no floating-point work
+        by = 12.0 * B * E
+        t_bytes = by / PEAK_BYTES * 1e3
+        report["sort_kv"] = _entry(
+            "sort_kv", "sort_kv.cu", "pixelsynth_tpu/ops/sort_pallas.py:158",
+            0.0, ms, pms, 0.0, t_bytes, library_ms=lib)
+        log(f"[K5] sort_kv (1, 2^19): {ms:.4f} ms kernel, {pms:.2f} ms plain network, "
+            f"{lib:.4f} ms torch.sort(stable=True), bound {t_bytes:.4f} ms "
+            f"(12 B x {B * E} elements / 3.35 TB/s)")
 
 
 def _view_inputs(W, seed=0):
@@ -279,17 +479,44 @@ def _view_inputs(W, seed=0):
     return img[None].astype(np.float32), demo_cameras(1.0)
 
 
-def phase_view(report, cfg=None):
-    import numpy as np
+def _counters():
+    from pixelsynth_tpu_torch.ops import (
+        gated_resnet_kernel, lmconv_fused, masked_conv_kernel, sort_kernel, splat)
+
+    return [lmconv_fused.LAUNCHES, splat.LAUNCHES, masked_conv_kernel.LAUNCHES,
+            gated_resnet_kernel.LAUNCHES, sort_kernel.LAUNCHES]
+
+
+def zero_launches():
+    for counts in _counters():
+        counts.update(dict.fromkeys(counts, 0))
+
+
+def read_launches():
+    out = {}
+    for counts in _counters():
+        out.update(counts)
+    return out
+
+
+def record_launches(report, launches, names, path):
+    """Write the launch counts of the kernels `names`, read just after the
+    path that runs them, into the report; each must have launched."""
+    for name in names:
+        report[name]["launches"] = launches[name]
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on {path}")
+
+
+def _run_view(tag, cfg):
+    """One timed `generate_view` (second call) at `cfg`, pop 16, every
+    stage of the view step with re-ranking by classifier entropy.  Launch
+    counts are zeroed just before it and read just after."""
     import torch
-    from pixelsynth_tpu_torch.config import Config
     from pixelsynth_tpu_torch.geometry.paths import get_rt_from_rot
-    from pixelsynth_tpu_torch.ops import lmconv_fused, splat
     from pixelsynth_tpu_torch.pipeline import CloudState, PixelSynth
     from pixelsynth_tpu_torch.scene import SceneGenerator, StageTimer
 
-    cfg = cfg or Config()
-    # every stage of the view step, re-ranking by classifier entropy included
     ps = PixelSynth(cfg, device=DEVICE, seed=0, with_classifier=True)
     gen = SceneGenerator(ps, num_samples=16)
     W = cfg.model.W
@@ -304,45 +531,174 @@ def phase_view(report, cfg=None):
 
     run(1)                                   # warm-up
     torch.cuda.synchronize()
-    for counts in (lmconv_fused.LAUNCHES, splat.LAUNCHES):
-        counts.update(dict.fromkeys(counts, 0))
+    zero_launches()
     gen.timer = StageTimer(DEVICE)
     t0 = time.perf_counter()
     best, out = run(2)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launches = read_launches()
     stages = gen.timer.times_ms()
-    launches = {**lmconv_fused.LAUNCHES, **splat.LAUNCHES}
-    st = out["ar_stats"]
+    l = cfg.model.lmconv
     n_bg = int((out["bg_ds"] >= 1 - 1e-6).sum())
-    log(f"[view] W={W} codes {cfg.model.lmconv.obs[1]}x{cfg.model.lmconv.obs[2]} "
-        f"F={cfg.model.lmconv.nr_filters} spec={cfg.sample.speculative} pop 16: "
-        f"{wall * 1e3:.1f} ms wall (second call)")
-    log("[view] stage ms " + json.dumps({k: round(v, 3) for k, v in stages.items()}))
-    log(f"[view] background cells {n_bg}, AR forwards {st['n_forwards']}, "
-        f"cells committed per forward {n_bg / max(1, st['n_forwards']):.2f}")
-    log(f"[view] launches in the timed view: {json.dumps(launches)}")
+    log(f"[{tag}] W={W} codes {l.obs[1]}x{l.obs[2]} F={l.nr_filters} "
+        f"sample_backend={l.sample_backend} sort_backend={cfg.model.splat.sort_backend} "
+        f"spec={cfg.sample.speculative} pop 16: {wall * 1e3:.1f} ms wall (second call)")
+    log(f"[{tag}] stage ms " + json.dumps({k: round(v, 3) for k, v in stages.items()}))
+    log(f"[{tag}] background cells {n_bg}; launches in the timed view: "
+        f"{json.dumps(launches)}")
     bi = best.float()
     if not (bool(torch.isfinite(bi).all()) and tuple(bi.shape) == (1, W, W, 3)
             and float(bi.abs().max()) <= 1.0):
         raise AssertionError("view output is not a finite image in [-1, 1]")
-    if n_bg == 0 or st["n_forwards"] == 0:
+    if n_bg == 0:
         raise AssertionError("the view had nothing to outpaint")
-    for name in report:
-        report[name]["launches"] = launches[name]
-        if launches[name] <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
-    # capacity truncation of this view's splat (the view's own points)
+    # this view's splat input: its own points and the (still empty) cloud
     from pixelsynth_tpu_torch.geometry.projection import (
         homogeneous_to_pixels, lift_to_cloud)
     c = gen._cams(view_cams)
     cloud = lift_to_cloud(out["depth"], c["K"], c["Kinv"], c["Pinv_in"], c["P_out"], W)
     pts, valid = homogeneous_to_pixels(cloud, W)
-    _, _, counts = splat._bin_points_batched(pts, valid, W, cfg.model.splat,
+    pts = torch.cat([pts, torch.zeros_like(pts)], 1)
+    valid = torch.cat([valid, torch.zeros_like(valid)], 1)
+    return out, launches, n_bg, pts, valid
+
+
+def phase_view(report, cfg=None):
+    import torch
+    from pixelsynth_tpu_torch.config import Config
+    from pixelsynth_tpu_torch.ops import splat
+
+    cfg = cfg or Config()
+    out, launches, n_bg, pts, valid = _run_view("view", cfg)
+    st = out["ar_stats"]
+    if st["n_forwards"] == 0:
+        raise AssertionError("the view had nothing to outpaint")
+    log(f"[view] AR forwards {st['n_forwards']}, cells committed per forward "
+        f"{n_bg / max(1, st['n_forwards']):.2f}")
+    record_launches(report, launches, ("lmconv_up", "lmconv_down", "splat_blend"),
+                    "the default view")
+    # capacity truncation of this view's splat
+    _, _, counts = splat._bin_points_batched(pts, valid, cfg.model.W, cfg.model.splat,
                                              return_counts=True)
     over = torch.clamp(counts - cfg.model.splat.max_points_per_tile, min=0)
     log(f"[view] splat: max entries per tile {int(counts.max())}, entries over "
         f"max_points_per_tile={cfg.model.splat.max_points_per_tile}: {int(over.sum())}")
+
+
+def phase_engines(report, B=16, side=32, Fc=80):
+    """The AR fill of the bench protocol (`ar_sample` over every background
+    cell of a half-empty grid, one cell per forward) through the module
+    path (K3) and through the per-layer kernel engine (K4 + K3); each
+    engine's logits are held to the K1 path's on the same inputs."""
+    import torch
+    from pixelsynth_tpu_torch.models.lmconv import LMPixelCNN, flax_named_params
+    from pixelsynth_tpu_torch.models.lmconv_fast import fast_logits_fn
+    from pixelsynth_tpu_torch.ops.lmconv_fused import (
+        make_fused_logits_fn, pack_lmconv_params)
+    from pixelsynth_tpu_torch.ops.masked_conv_kernel import prepare_mask
+    from pixelsynth_tpu_torch.sampling import ar_sample
+    from pixelsynth_tpu_torch.weights import unflatten_tree
+
+    cfg, flat = _pixelcnn_params(Fc)
+    l = cfg.model.lmconv
+    model = LMPixelCNN(nr_resnet=l.nr_resnet, nr_filters=Fc,
+                       input_channels=l.input_channels, num_classes=l.num_classes,
+                       compute_dtype="bfloat16", backend="pallas")
+    with torch.no_grad():
+        model.load_flax(unflatten_tree(flat))
+    model = model.to(DEVICE).eval()
+    params = flax_named_params(model)
+    order, masks, bg_ds = _half_grid(side)
+    order, masks, bg_ds = (t.repeat(B, *[1] * (t.dim() - 1)) for t in (order, masks, bg_ds))
+    triple = (masks[:, 0], prepare_mask(masks[:, 1]), prepare_mask(masks[:, 2]))
+
+    @torch.no_grad()
+    def module_fn(codes, filled):
+        return model(None, *triple, codes=codes, filled=filled)
+
+    engines = {"module": (module_fn, {"masked_conv": 32}),
+               "fast": (fast_logits_fn(params, masks, model),
+                        {"gated_resnet": 14, "masked_conv": 4})}
+    k1_fn = make_fused_logits_fn(pack_lmconv_params(params, nr_resnet=l.nr_resnet,
+                                                    device=DEVICE), masks)
+    import numpy as np
+    rng = np.random.default_rng(5)
+    codes = torch.as_tensor(rng.integers(0, 512, (B, side, side)), device=DEVICE)
+    filled = (1.0 - bg_ds).float()
+    want = k1_fn(codes, filled)
+    n_bg = int((bg_ds[0] >= 1 - 1e-6).sum())
+    for name, (fn, per_forward) in engines.items():
+        zero_launches()
+        got = fn(codes, filled)
+        torch.cuda.synchronize()
+        one = {k: v for k, v in read_launches().items() if v}
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        err = float((got - want).abs().max())
+        log(f"[engines] {name}: launches per forward {json.dumps(one)}; against the "
+            f"K1 path argmax agreement {agree:.4f} (tol >= 0.97), max|diff| {err:.3e}")
+        if one != per_forward:
+            raise AssertionError(f"{name} engine: launches per forward {one}, "
+                                 f"expected {per_forward}")
+        if not agree >= 0.97:
+            raise AssertionError(f"{name} engine disagrees with the K1 path")
+        fwd_ms = time_ms(lambda: fn(codes, filled), reps=5, rounds=3)
+        gen = torch.Generator(device=DEVICE).manual_seed(6)
+        zero_launches()
+        t0 = time.perf_counter()
+        sampled = ar_sample(fn, codes, order, bg_ds, gen, num_classes=512)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        log(f"[engines] {name}: {fwd_ms:.3f} ms per forward (pop {B}); AR fill of "
+            f"{n_bg} cells in {secs * 1e3:.1f} ms; launches {json.dumps(launches)}")
+        for k, v in per_forward.items():
+            if launches[k] != v * n_bg:
+                raise AssertionError(f"{name} engine: {launches[k]} {k} launches in "
+                                     f"{n_bg} forwards, expected {v * n_bg}")
+        keep = bg_ds < 1 - 1e-6
+        if not (torch.equal(sampled[keep], codes[keep])
+                and int(sampled.min()) >= 0 and int(sampled.max()) < 512):
+            raise AssertionError(f"{name} engine: the AR fill changed a known cell "
+                                 "or left the code range")
+        if name == "fast":
+            record_launches(report, launches, ("gated_resnet",),
+                            "the per-layer engine's AR fill")
+
+
+def phase_view2(report):
+    """This slice's path through the normal entry points at full width:
+    the view of phase 3 with sample_backend="pallas" (K3 per masked conv)
+    and sort_backend="pallas" (K5 binning)."""
+    import torch
+    from pixelsynth_tpu_torch.config import Config
+    from pixelsynth_tpu_torch.ops import splat
+
+    cfg = Config()
+    cfg.model.lmconv.sample_backend = "pallas"
+    cfg.model.splat.sort_backend = "pallas"
+    out, launches, n_bg, pts, valid = _run_view("view-2", cfg)
+    record_launches(report, launches, ("masked_conv", "sort_kv"),
+                    'the view with sample_backend="pallas", sort_backend="pallas"')
+    # one cell per forward, 32 masked convs a forward; one splat a view
+    if launches["masked_conv"] != 32 * n_bg:
+        raise AssertionError(f"{launches['masked_conv']} K3 launches for {n_bg} "
+                             "forwards, expected 32 a forward")
+    if launches["sort_kv"] != 1 or launches["splat_blend"] != 1:
+        raise AssertionError("expected one K5 and one K2 launch per splat, got "
+                             f"{launches['sort_kv']} and {launches['splat_blend']}")
+    if launches["lmconv_up"] or launches["gated_resnet"]:
+        raise AssertionError("the module path launched another engine's kernel")
+    # the K5 binner against the library-sort binner on this view's points
+    # (B = 1 keeps 16 depth-bucket bits in both)
+    W, sc = cfg.model.W, cfg.model.splat
+    idx_k, ok_k = splat._bin_points_batched_pallas(pts, valid, W, sc)
+    idx_l, ok_l = splat._bin_points_batched(pts, valid, W, sc)
+    same = bool(torch.equal(ok_k, ok_l)) and bool(torch.equal(idx_k[ok_l], idx_l[ok_l]))
+    log(f"[view-2] binning tables of the K5 binner and the library-sort binner "
+        f"({int(ok_l.sum())} valid slots) identical: {same}")
+    if not same:
+        raise AssertionError("the K5 binner's tables differ from the library-sort binner's")
 
 
 def phase_walk(directions=("R", "L"), num_split=2):
@@ -398,8 +754,13 @@ def main(argv):
     report = {}
     phase_k1(report)
     phase_k2(report)
+    phase_k3(report)
+    phase_k4(report)
+    phase_k5(report)
     if not only_kernels:
         phase_view(report)
+        phase_engines(report)
+        phase_view2(report)
         phase_walk()
     log(f"[total] {time.perf_counter() - t0:.1f} s")
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -6,11 +6,31 @@ stored in a stitched checkpoint (`evidence/relay/stitched.npz`) round-trips
 through either package: `Config.to_json` / `Config.from_json` are lossless
 and `Config.override` applies eval-time overrides.
 
-Knobs named for the TPU implementation (tile_group, use_pallas,
-sort_backend, blend_dtype, sample_backend, train_backend, masks_backend)
-are kept so configs round-trip; the port reads tile_size,
-max_points_per_tile and tile_group (the plain blend's group size) and
-always samples through its fused kernels.
+Fields named for the TPU implementation keep their names and values
+("pallas" included) so configs round-trip.  What the port reads, and what
+each value selects on the card:
+
+  * `splat.tile_size`, `splat.max_points_per_tile`: the binning tables;
+    `splat.tile_group`: the plain blend's group size (CPU tensors only);
+  * `splat.binning`: "argsort" = one sort over fused (tile, depth-bucket)
+    keys; "counting" = a scatter into (tile, entry-rank) slots and an
+    exact-f32 depth sort within each tile;
+  * `splat.sort_backend` (argsort binning): "xla" = one library sort over
+    the whole batch; "pallas" = per-image keys sorted by the hand-written
+    kernel K5 (ops/sort_kernel.py) while an image's entries fit it;
+  * `splat.blend_dtype`: "float32" only;
+  * `lmconv.sample_backend`: "fused" = the fused forward K1
+    (ops/lmconv_fused.py) under the speculative sampler; "pallas" = the
+    per-layer module with every masked conv through kernel K3
+    (ops/masked_conv_kernel.py); "xla" = the module with the plain masked
+    conv.  The last two sample one cell per forward;
+  * `lmconv.compute_dtype`, `feature_norm`, `conv_mask_weight`,
+    `dropout_prob` and the model's sizes.
+
+Any other value of these fields, and `lmconv.weight_norm=True`, raises
+NotImplementedError naming the field.  `use_pallas`, `train_backend` and
+`masks_backend` belong to paths the port does not have yet (the blend
+always runs K2, orders and masks are built on the host) and are not read.
 """
 
 from __future__ import annotations
@@ -45,10 +65,10 @@ class SplatConfig:
     # "counting" = scatter + exact-f32 per-tile z sort (bit-faithful to the
     # dense reference order, but entry-order truncation on overflow)
     binning: str = "argsort"
-    # argsort-binning sort engine: "xla" = lax.sort_key_val (latency-bound,
-    # ~30 ms at 1M keys); "pallas" = VMEM-resident bitonic network
-    # (ops/sort_pallas, bit-identical output; falls back to xla when the
-    # padded per-image entry count exceeds 2^20)
+    # argsort-binning sort engine: "xla" = one library sort over the whole
+    # batch; "pallas" = per-image bitonic network in kernel K5
+    # (ops/sort_kernel, bit-identical output; the whole-batch sort runs
+    # instead when an image's 4N entries exceed 2^19)
     sort_backend: str = "xla"
     # blend math dtype for the per-tile weight x feature contraction and
     # the feature gathers feeding it ("float32" | "bfloat16"): bf16 halves

@@ -316,3 +316,22 @@ def pono(x: torch.Tensor, epsilon: float = 1e-5) -> torch.Tensor:
     mean = x.mean(-1, keepdim=True)
     var = x.var(-1, keepdim=True, unbiased=True)
     return (x - mean) / torch.sqrt(var + epsilon)
+
+
+def order_rescale(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Divide by the per-location count of visible taps (layers.py:300-307).
+    x (B, H, W, C); mask (B, k*k, H*W)."""
+    B, H, W, _ = x.shape
+    return x / mask.sum(1).reshape(B, H, W, 1)
+
+
+class Nin(FlaxNamed):
+    """1x1 'network in network' linear layer (layers.py:310-317): one
+    Dense over the last axis."""
+
+    def __init__(self, cin: int, features: int):
+        super().__init__()
+        self.add("Dense", Dense(cin, features))
+
+    def forward(self, x):
+        return self.Dense_0(x)

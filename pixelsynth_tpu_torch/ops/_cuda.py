@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface.  It is compiled on first
 use into `build/kernels/lib<name>-<hash>.so` at the repository root (the
-hash is the source's content hash, so an edited source is rebuilt) with
+hash covers the source and every `csrc/*.cuh` header it includes, directly
+or through another header, so an edited source or header is rebuilt) with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC
@@ -18,10 +19,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -42,10 +44,29 @@ def nvcc_path() -> str:
                        "machine with the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def source_files(name: str) -> List[str]:
+    """csrc/<name>.cu and the local headers (`#include "..."`) it pulls in,
+    transitively, in first-seen order."""
+    todo, seen = [f"{name}.cu"], []
+    while todo:
+        rel = todo.pop(0)
+        if rel in seen:
+            continue
+        seen.append(rel)
+        with open(os.path.join(CSRC_DIR, rel), "rb") as f:
+            todo += [m.decode() for m in _INCLUDE.findall(f.read())]
+    return [os.path.join(CSRC_DIR, rel) for rel in seen]
+
+
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha1()
+    for path in source_files(name):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def _nvcc_cmd(name: str, out: str, verbose: bool) -> list:
@@ -59,8 +80,9 @@ def _nvcc_cmd(name: str, out: str, verbose: bool) -> list:
 
 def build(names: Iterable[str], verbose: bool = False) -> Dict[str, str]:
     """Compile every named source not built yet, all nvcc processes
-    started together.  Returns {name: compiler output}; raises on a
-    failed build."""
+    started together.  Returns {name: compiler output}.  Every process
+    is waited for; then one RuntimeError names each source that failed
+    (an error in a shared header fails every source that includes it)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     for name in names:
@@ -71,13 +93,16 @@ def build(names: Iterable[str], verbose: bool = False) -> Dict[str, str]:
         procs[name] = (subprocess.Popen(
             _nvcc_cmd(name, tmp, verbose), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True), tmp, out)
-    logs = {}
+    logs, failed = {}, []
     for name, (proc, tmp, out) in procs.items():
         text, _ = proc.communicate()
         logs[name] = text
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{text}")
-        os.replace(tmp, out)
+            failed.append(f"nvcc failed for {name}.cu:\n{text}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return logs
 
 

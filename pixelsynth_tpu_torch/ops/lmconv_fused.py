@@ -57,7 +57,8 @@ def pack_lmconv_params(params: Dict[str, torch.Tensor], *, nr_resnet: int = 2,
     n_up, n_dn = 3 * nr, 3 * nr + 2
 
     def p(name):
-        return torch.as_tensor(params[name], dtype=torch.float32, device=device)
+        return torch.as_tensor(params[name], dtype=torch.float32,
+                               device=device).contiguous()
 
     def gw(i, leaf):
         return p(f"GatedResnet_{i}/{leaf}")

@@ -1,10 +1,72 @@
-"""The PixelCNN's embedding-gather first layer (port of
-pixelsynth_tpu/ops/masked_conv.py `locally_masked_embed`, :145-200)."""
+"""The locally masked convolution in plain, differentiable PyTorch, and the
+PixelCNN's embedding-gather first layer (port of
+pixelsynth_tpu/ops/masked_conv.py: `locally_masked_conv2d`, :44-88, and
+`locally_masked_embed`, :145-200).
+
+`locally_masked_conv2d` is what `sample_backend="xla"` runs and what the
+kernels' plain versions are tested against.  The restructured
+`locally_masked_conv2d_fused` (:91-142) has no caller in the port yet."""
 
 from __future__ import annotations
 
+from typing import List, Optional
+
 import torch
 import torch.nn.functional as F
+
+
+def tap_offsets(k: int, dilation: int):
+    """(dr, dc) of the k*k taps, row-major."""
+    half = k // 2
+    return [((i - half) * dilation, (j - half) * dilation)
+            for i in range(k) for j in range(k)]
+
+
+def shifted_taps(x: torch.Tensor, k: int, dilation: int) -> List[torch.Tensor]:
+    """x (B, H, W, C) -> k*k views, tap t's being x[p + o_t] with zeros
+    outside the image ('SAME' padding, pad = dilation * (k - 1) // 2)."""
+    B, H, W, _ = x.shape
+    pad = (k // 2) * dilation
+    xp = F.pad(x, (0, 0, pad, pad, pad, pad))
+    return [xp[:, pad + dr:pad + dr + H, pad + dc:pad + dc + W]
+            for dr, dc in tap_offsets(k, dilation)]
+
+
+def mask_rows(mask: torch.Tensor, B: int, H: int, W: int) -> torch.Tensor:
+    """(B, k*k, H*W) -> (B, H, W, k*k)."""
+    return mask.reshape(B, mask.shape[1], H, W).permute(0, 2, 3, 1)
+
+
+def locally_masked_conv2d(x: torch.Tensor, mask: torch.Tensor,
+                          weight: torch.Tensor,
+                          bias: Optional[torch.Tensor] = None,
+                          mask_weight: Optional[torch.Tensor] = None, *,
+                          dilation: int = 1,
+                          compute_dtype: Optional[torch.dtype] = None
+                          ) -> torch.Tensor:
+    """Convolution whose kernel support is masked per output location.
+
+    x (B, H, W, Cin); mask (B, k*k, H*W), one entry per tap per output
+    location, taps row-major; weight (k*k, Cin, Cout); bias (Cout);
+    mask_weight (k*k, Cout), a learned term on the mask itself.  With
+    compute_dtype the operands are rounded to it and the sum is taken in
+    f32.  Returns (B, H, W, Cout) f32."""
+    B, H, W, _ = x.shape
+    K2 = weight.shape[0]
+    k = int(round(K2 ** 0.5))
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+        weight = weight.to(compute_dtype)
+    m = mask_rows(mask, B, H, W).to(x.dtype)
+    patches = torch.stack(shifted_taps(x, k, dilation), dim=3)  # (B,H,W,k2,Cin)
+    masked = (patches * m[..., None]).float()
+    out = torch.einsum("bhwpc,pco->bhwo", masked, weight.float())
+    if mask_weight is not None:
+        out = out + torch.einsum("bhwp,po->bhwo", m.float(),
+                                 mask_weight.to(m.dtype).float())
+    if bias is not None:
+        out = out + bias
+    return out.float()
 
 
 def locally_masked_embed(codes: torch.Tensor, filled: torch.Tensor,

@@ -1,11 +1,19 @@
 """Soft z-buffer point splatter (port of pixelsynth_tpu/ops/splat.py) with
-kernel K2 for the blend.
+kernel K2 for the blend and kernel K5 for the binning sort.
 
-  1. Bin (PyTorch): each point's radius-r footprint overlaps <= 4 image
-     tiles; the whole batch's (image, tile, depth-bucket) keys, packed into
-     31 bits, go through ONE stable sort, segment offsets come from a binary
-     search, and a fixed-capacity gather yields every tile's z-sorted slot
-     list (`_bin_points_batched`, bit-equal to the JAX binning).
+  1. Bin: each point's radius-r footprint overlaps <= 4 image tiles; a
+     fixed-capacity gather yields every tile's z-sorted slot list.
+     `_bin_dispatch` picks the binner as the JAX package does:
+       * `binning="argsort"`, `sort_backend="xla"` (the defaults): the whole
+         batch's (image, tile, depth-bucket) keys, packed into 31 bits, go
+         through ONE stable library sort, segment offsets from a binary
+         search (`_bin_points_batched`, bit-equal to the JAX binning);
+       * `sort_backend="pallas"`: per-image (tile, depth-bucket) keys
+         sorted by kernel K5 (`_bin_points_batched_pallas`), while an
+         image's 4N entries fit the kernel (<= 2^19); above that the
+         whole-batch sort runs, as in the JAX package;
+       * `binning="counting"`: a scatter into (tile, entry-rank) slots and
+         an exact-f32 per-tile depth sort (`_bin_points_counting`).
   2. Blend (K2): per tile, radius coverage, the K-nearest-in-z cap,
      alpha = (1 - sqrt(clip(d, 1e-3, 1)))^tau and alphacomposite / wsum /
      wsumnorm accumulation, plus the coverage map (`blend_tiles`: the CUDA
@@ -92,14 +100,7 @@ def _bin_points_batched(points, valid, W: int, cfg: SplatConfig,
 
     seg_bits = max(1, (B * (nT + 1) - 1).bit_length())
     bucket_bits = min(16, 31 - seg_bits)
-    n_buckets = 1 << bucket_bits
-    depth = points[..., 2]
-    big = torch.tensor(3.0e38, dtype=torch.float32, device=dev)
-    dmin = torch.where(on_screen, depth, big).amin(1)
-    dmax = torch.where(on_screen, depth, -big).amax(1)
-    scale = (n_buckets - 1) / torch.clamp(dmax - dmin, min=1e-6)
-    bucket = torch.clamp((depth - dmin[:, None]) * scale[:, None], 0,
-                         n_buckets - 1).to(torch.int32)
+    bucket = _depth_buckets(points, on_screen, bucket_bits)
 
     img = torch.arange(B, dtype=torch.int32, device=dev)[:, None, None]
     seg = img * (nT + 1) + tile_id
@@ -121,6 +122,161 @@ def _bin_points_batched(points, valid, W: int, cfg: SplatConfig,
         return slot_point_idx, slot_valid
     ends = torch.searchsorted(sorted_key, (want_seg.reshape(-1) + 1) << bucket_bits)
     return slot_point_idx, slot_valid, ends.reshape(B, nT) - offsets
+
+
+def _depth_buckets(points, on_screen, bucket_bits: int):
+    """Per-image depth bucket in [0, 2^bucket_bits) over the on-screen
+    depth range, front to back.  -> (B, N) int32."""
+    n_buckets = 1 << bucket_bits
+    depth = points[..., 2]
+    big = torch.tensor(3.0e38, dtype=torch.float32, device=points.device)
+    dmin = torch.where(on_screen, depth, big).amin(1)
+    dmax = torch.where(on_screen, depth, -big).amax(1)
+    scale = (n_buckets - 1) / torch.clamp(dmax - dmin, min=1e-6)
+    return torch.clamp((depth - dmin[:, None]) * scale[:, None], 0,
+                       n_buckets - 1).to(torch.int32)
+
+
+def _image_sort_keys(points, valid, W: int, cfg: SplatConfig):
+    """Per-image binning keys for kernel K5: (tile << bucket_bits) + depth
+    bucket for each of a point's 4 candidate entries ((4, N) flattening),
+    the sentinel `nT << bucket_bits` for masked entries and for the
+    padding up to E_pad = 2^max(14, ceil(log2(4N))).
+    -> (key (B, E_pad) int32, bucket_bits)."""
+    B, N, _ = points.shape
+    nside = W // cfg.tile_size
+    nT = nside * nside
+    tile_id, emask, on_screen = _tile_entries(points, valid, W, cfg)
+    # segment values span 0..nT (tiles + the masked segment nT)
+    seg_bits = nT.bit_length()
+    bucket_bits = min(16, 31 - seg_bits)
+    bucket = _depth_buckets(points, on_screen, bucket_bits)
+    sentinel = nT << bucket_bits
+    key = (tile_id << bucket_bits) + bucket[:, None, :]
+    key = torch.where(emask, key, torch.full_like(key, sentinel))
+    key = key.reshape(B, 4 * N)
+    E = 4 * N
+    E_pad = 1 << max(14, (E - 1).bit_length())
+    # padding entries sort behind every real tile segment and fail the
+    # seg-equality slot check
+    if E_pad > E:
+        key = F.pad(key, (0, E_pad - E), value=sentinel)
+    return key.contiguous(), bucket_bits
+
+
+def _bin_points_batched_pallas(points, valid, W: int, cfg: SplatConfig):
+    """Same contract as `_bin_points_batched`, with each image's entries
+    sorted by kernel K5 (ops/sort_kernel.py) instead of one library sort
+    over the batch.  The output is identical whenever the whole-batch key
+    also had 16 depth-bucket bits (B * (nT + 1) <= 2^15); for larger
+    batches the per-image key keeps finer z buckets.
+
+    Tile segments never cross images, so each image's 4N entries sort
+    independently.  The kernel carries the entry index, which gives the
+    point as `entry % N` and the stable sort's tie order."""
+    from pixelsynth_tpu_torch.ops.sort_kernel import sort_kv_kernel
+
+    B, N, _ = points.shape
+    nside = W // cfg.tile_size
+    nT = nside * nside
+    M = cfg.max_points_per_tile
+    dev = points.device
+    key, bucket_bits = _image_sort_keys(points, valid, W, cfg)
+    E_pad = key.shape[1]
+
+    sorted_key, sorted_entry = sort_kv_kernel(key)
+    sorted_point = (sorted_entry % N).long()
+    sorted_seg = sorted_key >> bucket_bits
+
+    want_tile = torch.arange(nT, dtype=torch.int32, device=dev).expand(B, nT)
+    offsets = torch.searchsorted(sorted_key, (want_tile << bucket_bits).contiguous())
+    slot = torch.clamp(offsets[..., None] + torch.arange(M, device=dev), 0,
+                       E_pad - 1).reshape(B, nT * M)
+    slot_point_idx = torch.gather(sorted_point, 1, slot).reshape(B, nT, M)
+    slot_valid = (torch.gather(sorted_seg, 1, slot).reshape(B, nT, M)
+                  == want_tile[..., None])
+    return slot_point_idx, slot_valid
+
+
+def _bin_points_counting(points, valid, W: int, cfg: SplatConfig):
+    """Counting-sort binning of ONE image: no global sort over fused keys.
+
+    points (N, 3); valid (N,).  1. every entry's rank within its tile, in
+    entry order; 2. one scatter with unique slot indices places entry
+    (tile, rank) while rank < M, so an overfull tile keeps its first M
+    entries in entry order; 3. a stable sort of exact f32 depths within
+    each tile gives the front-to-back order (entries are in point-index
+    order, so ties keep depth-then-index order).  Same contract as
+    `_bin_points_batched` for one image: (nT, M) int64, (nT, M) bool."""
+    N = points.shape[0]
+    nside = W // cfg.tile_size
+    nT = nside * nside
+    M = cfg.max_points_per_tile
+    dev = points.device
+    tile_id, _, _ = _tile_entries(points[None], valid[None], W, cfg)
+    tid = tile_id.reshape(-1).long()                 # (E,), nT = masked
+    E = tid.shape[0]
+    point_idx = torch.arange(N, device=dev).repeat(4)
+
+    # rank = how many earlier entries share the tile: the entry's position
+    # in a stable grouping by tile, minus its tile's start
+    order = torch.argsort(tid, stable=True)
+    counts = torch.bincount(tid, minlength=nT + 1)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.empty(E, dtype=torch.long, device=dev)
+    rank[order] = torch.arange(E, device=dev) - starts[tid[order]]
+
+    keep = (tid < nT) & (rank < M)
+    slot = (tid * M + rank)[keep]
+    table = torch.zeros(nT * M, dtype=torch.long, device=dev)
+    vtable = torch.zeros(nT * M, dtype=torch.bool, device=dev)
+    table[slot] = point_idx[keep]
+    vtable[slot] = True
+    slot_point_idx = table.reshape(nT, M)
+    slot_valid = vtable.reshape(nT, M)
+
+    big = torch.tensor(3.0e38, dtype=torch.float32, device=dev)
+    d = torch.where(slot_valid, points[:, 2][slot_point_idx], big)
+    by_depth = torch.argsort(d, dim=1, stable=True)
+    return (torch.gather(slot_point_idx, 1, by_depth),
+            torch.gather(slot_valid, 1, by_depth))
+
+
+# what the dispatch last took, for tests and smoke runs
+BINNER_CALLS = {"counting": 0, "sort_kernel": 0, "batched": 0}
+
+
+def _bin_dispatch(points, valid, W: int, cfg: SplatConfig):
+    """Route to the configured binner (ops/splat.py:377-392); all three
+    return (slot_point_idx (B, nT, M), slot_valid (B, nT, M)).
+
+    `sort_backend="pallas"` takes the K5 binner while an image's 4N entries
+    fit the kernel (<= MAX_E = 2^19); above that the whole-batch sort runs,
+    as in the JAX package.  Unlike there, the route does not depend on the
+    device: on CPU tensors the K5 wrapper runs its plain network, on CUDA
+    tensors it launches the kernel or raises."""
+    if cfg.binning == "counting":
+        BINNER_CALLS["counting"] += 1
+        per_image = [_bin_points_counting(p, v, W, cfg)
+                     for p, v in zip(points, valid)]
+        return (torch.stack([i for i, _ in per_image]),
+                torch.stack([v for _, v in per_image]))
+    if cfg.binning != "argsort":
+        raise NotImplementedError(
+            f'splat.binning={cfg.binning!r}: the port implements "argsort" '
+            'and "counting"')
+    if cfg.sort_backend == "pallas":
+        from pixelsynth_tpu_torch.ops.sort_kernel import MAX_E
+
+        if 4 * points.shape[1] <= MAX_E:
+            BINNER_CALLS["sort_kernel"] += 1
+            return _bin_points_batched_pallas(points, valid, W, cfg)
+    elif cfg.sort_backend != "xla":
+        raise NotImplementedError(
+            f'splat.sort_backend={cfg.sort_backend!r}: the port implements '
+            '"xla" (one library sort) and "pallas" (kernel K5)')
+    BINNER_CALLS["batched"] += 1
+    return _bin_points_batched(points, valid, W, cfg)
 
 
 def blend_tiles_plain(slot_pts, slot_feats, slot_valid, tile_origin, W: int,
@@ -238,6 +394,10 @@ def splat(points, feats, valid=None, *, W: int, cfg: SplatConfig = None):
     into (B, W, W, C) f32 + the (B, W, W) bool background mask (point-free
     pixels, dilated by the background-smoothing max filter)."""
     cfg = cfg or SplatConfig()
+    if cfg.blend_dtype != "float32":
+        raise NotImplementedError(
+            f'splat.blend_dtype={cfg.blend_dtype!r}: the port blends in '
+            '"float32" only')
     B, N, _ = points.shape
     if valid is None:
         valid = torch.ones((B, N), dtype=torch.bool, device=points.device)
@@ -245,7 +405,7 @@ def splat(points, feats, valid=None, *, W: int, cfg: SplatConfig = None):
     nside = W // TS
     nT = nside * nside
     C = feats.shape[-1]
-    slot_idx, slot_valid = _bin_points_batched(points, valid, W, cfg)
+    slot_idx, slot_valid = _bin_dispatch(points, valid, W, cfg)
     spts, sfts, svld = gather_slots(points.float(), feats.float(), slot_idx,
                                     slot_valid)
     org = tile_origins(W, TS, points.device).repeat(B, 1)

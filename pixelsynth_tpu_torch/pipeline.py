@@ -1,9 +1,12 @@
 """The PixelSynth inference pipeline on PyTorch (port of the inference
 stages of pixelsynth_tpu/pipeline.py, :285-481).
 
-  depth U-Net -> reprojection -> soft z-buffer splat (K2) -> background
-  mask -> generation order (host heap) + kernel masks -> VQ encode ->
-  speculative AR fill (K1) -> VQ decode -> refinement decoder
+  depth U-Net -> reprojection -> soft z-buffer splat (K2; binning by
+  `splat.binning` / `splat.sort_backend`, K5) -> background mask ->
+  generation order (host heap) + kernel masks -> VQ encode -> AR fill
+  (`lmconv.sample_backend`: "fused" = speculative through K1, "pallas" =
+  the module path through K3, "xla" = the module path through the plain
+  masked conv) -> VQ decode -> refinement decoder
 
 Cumulative scenes carry a fixed-capacity, validity-masked point cloud
 (`CloudState`); appends compact it with a stable sort.  Entry points run
@@ -26,14 +29,17 @@ from pixelsynth_tpu_torch.geometry.projection import (
 from pixelsynth_tpu_torch.models.classifier import ResNet18
 from pixelsynth_tpu_torch.models.discriminators import MultiscaleDiscriminator
 from pixelsynth_tpu_torch.models.encoderdecoder import ResNetDecoder
+from pixelsynth_tpu_torch.models.lmconv import LMPixelCNN, flax_named_params
 from pixelsynth_tpu_torch.models.unet import UNet
 from pixelsynth_tpu_torch.models.vqvae import VQVAETop
 from pixelsynth_tpu_torch.ops.distance_transform import signed_distance_field
 from pixelsynth_tpu_torch.ops.lmconv_fused import (
     make_fused_logits_fn, pack_lmconv_params,
 )
+from pixelsynth_tpu_torch.ops.masked_conv_kernel import prepare_mask
 from pixelsynth_tpu_torch.ops.orders import orders_and_masks
 from pixelsynth_tpu_torch.ops.splat import splat
+from pixelsynth_tpu_torch.weights import unflatten_tree
 
 
 @dataclasses.dataclass
@@ -111,6 +117,31 @@ def build_modules(cfg: Config, classifier_vars=None) -> Dict[str, torch.nn.Modul
     }
 
 
+SAMPLE_BACKENDS = ("fused", "pallas", "xla")
+
+
+def build_pixelcnn(cfg: Config) -> LMPixelCNN:
+    """The sampling-side PixelCNN module (`pixelcnn_fast`, pipeline.py
+    :226-231), on the CPU, unloaded: the masked-conv backend is
+    `lmconv.sample_backend`, with "fused" keeping the kernel backend for
+    the module (the fused forward itself is `make_sampling_logits_fn`'s)."""
+    l = cfg.model.lmconv
+    if l.sample_backend not in SAMPLE_BACKENDS:
+        raise NotImplementedError(
+            f"lmconv.sample_backend={l.sample_backend!r}: the port implements "
+            f"{SAMPLE_BACKENDS}")
+    if l.weight_norm:
+        raise NotImplementedError("lmconv.weight_norm=True is not ported")
+    return LMPixelCNN(
+        nr_resnet=l.nr_resnet, nr_filters=l.nr_filters,
+        input_channels=l.input_channels, kernel_size=l.kernel_size,
+        max_dilation=l.max_dilation, feature_norm=l.feature_norm,
+        dropout_prob=l.dropout_prob, conv_bias=l.conv_bias,
+        conv_mask_weight=l.conv_mask_weight, num_classes=l.num_classes,
+        compute_dtype=l.compute_dtype,
+        backend="pallas" if l.sample_backend == "fused" else l.sample_backend)
+
+
 def random_pixelcnn_params(cfg: Config, gen: torch.Generator) -> Dict[str, torch.Tensor]:
     """Flax-named PixelCNN arrays from a seed: lmconv weights and biases
     ~ U(+-1/sqrt(fan_in)) (the reference's reset_parameters), nin
@@ -123,6 +154,9 @@ def random_pixelcnn_params(cfg: Config, gen: torch.Generator) -> Dict[str, torch
         bound = 1.0 / np.sqrt(cin * k2)
         out[f"{name}/weight"] = (torch.rand((k2, cin, cout), generator=gen) * 2 - 1) * bound
         out[f"{name}/bias"] = (torch.rand((cout,), generator=gen) * 2 - 1) * bound
+        if l.conv_mask_weight:
+            out[f"{name}/mask_weight"] = (
+                (torch.rand((k2, cout), generator=gen) * 2 - 1) / np.sqrt(k2))
 
     def dense(name, cin, cout):
         out[f"{name}/kernel"] = torch.randn((cin, cout), generator=gen) / np.sqrt(cin)
@@ -175,9 +209,20 @@ class PixelSynth:
         self.classifier = mods.get("classifier")
         if self.classifier is not None:
             self.classifier = self.classifier.to(self.device).eval()
-        pcnn = state_dicts.get("pixelcnn") or random_pixelcnn_params(cfg, gen)
+        # one PixelCNN parameter set for the three engines: the module
+        # (sample_backend "pallas" / "xla"), K1's packing ("fused") and the
+        # per-layer kernel engine (models/lmconv_fast.py)
+        pixelcnn = build_pixelcnn(cfg)
+        with torch.no_grad():
+            if "pixelcnn" in state_dicts:
+                pixelcnn.load_state_dict(state_dicts["pixelcnn"])
+            else:
+                pixelcnn.load_flax(unflatten_tree(random_pixelcnn_params(cfg, gen)))
+        self.pixelcnn = pixelcnn.to(self.device).eval()
         l = cfg.model.lmconv
-        self.packed = pack_lmconv_params(pcnn, nr_resnet=l.nr_resnet,
+        self.pixelcnn_params = flax_named_params(self.pixelcnn)
+        self.packed = pack_lmconv_params(self.pixelcnn_params,
+                                         nr_resnet=l.nr_resnet,
                                          compute_dtype=l.compute_dtype,
                                          device=self.device)
 
@@ -242,13 +287,42 @@ class PixelSynth:
     def vq_decode(self, codes):
         return self.vqvae.decode_code(codes)
 
+    @torch.no_grad()
+    def pixelcnn_logits_codes(self, codes, filled, masks):
+        """The module path on integer codes + filled mask (the
+        embedding-gather first layer): masks (B, 3, k^2, HW) stacked [init,
+        undilated, dilated], or that triple as a sequence (whose members
+        may be PreparedMasks).  Returns (B, H, W, num_classes) logits."""
+        m = (masks[:, 0], masks[:, 1], masks[:, 2]) if torch.is_tensor(masks) else masks
+        return self.pixelcnn(None, *m, codes=codes, filled=filled)
+
     def make_sampling_logits_fn(self, masks):
-        """(codes, filled) -> logits closure with `.at`, through K1."""
+        """(codes, filled) -> logits closure for the AR population loop, by
+        `lmconv.sample_backend` (pipeline.py:425-467): "fused" is the fused
+        forward (K1; weights packed and masks folded once, outside the
+        loop), with `.at`; "pallas" and "xla" go through the per-layer
+        module (K3, or the plain masked conv) and have no `.at`, so the
+        sampler takes one cell per forward."""
         l = self.cfg.model.lmconv
-        return make_fused_logits_fn(
-            self.packed, masks, nr_resnet=l.nr_resnet,
-            max_dilation=l.max_dilation, num_classes=l.num_classes,
-            compute_dtype=l.compute_dtype)
+        if l.sample_backend == "fused":
+            if l.feature_norm != "pono" or l.conv_mask_weight:
+                raise NotImplementedError(
+                    'lmconv.sample_backend="fused" computes feature_norm="pono" '
+                    "without conv_mask_weight only")
+            return make_fused_logits_fn(
+                self.packed, masks, nr_resnet=l.nr_resnet,
+                max_dilation=l.max_dilation, num_classes=l.num_classes,
+                compute_dtype=l.compute_dtype)
+        # build_pixelcnn refused every other value than "pallas" and "xla"
+        triple = (masks[:, 0], masks[:, 1], masks[:, 2])
+        if l.sample_backend == "pallas" and masks.is_cuda:
+            # lay the masks out for K3 once, not at each of its launches
+            triple = (triple[0], prepare_mask(triple[1]), prepare_mask(triple[2]))
+
+        def fn(codes, filled):
+            return self.pixelcnn_logits_codes(codes, filled, triple)
+
+        return fn
 
     def decode_image(self, combined, bg_mask, *, noise_scale: float = 1.0,
                      gen: Optional[torch.Generator] = None):

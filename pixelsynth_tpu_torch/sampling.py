@@ -90,8 +90,13 @@ def ar_sample_speculative(logits_fn: Callable, codes: torch.Tensor,
     Commits 1..S+1 cells per forward from exactly the joint of
     `ar_sample`.  Needs logits_fn.at; falls back to `ar_sample`."""
     if getattr(logits_fn, "at", None) is None:
-        return ar_sample(logits_fn, codes, order, bg_ds, gen,
-                         num_classes=num_classes, temperature=temperature)
+        out = ar_sample(logits_fn, codes, order, bg_ds, gen,
+                        num_classes=num_classes, temperature=temperature)
+        if return_stats:
+            # one forward per step of the fullest candidate
+            steps = int(sample_positions(order, bg_ds)[1].max())
+            return out, {"n_forwards": steps, "max_n_bg": steps}
+        return out
     S = int(spec)
     G = 2 * S + 1
     B, H, W = codes.shape

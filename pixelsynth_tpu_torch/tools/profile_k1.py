@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -29,7 +30,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 PARTS = (
     ("  // epilogue: one warp per position", "    }\n  }\n", "NO_EPILOGUE"),
     ("    mma_step<F, NOUT, F>(acc, ring_a[i & 1]", ";\n", "NO_MMA"),
-    ("      issue_step<F, NOUT>(ring_a[(i + 1) & 1]", ";\n", "NO_COPY"),
+    ("      copy_step<F, NOUT>(ring_a[(i + 1) & 1]", ";\n", "NO_COPY"),
 )
 VARIANTS = {"whole": [], "no epilogue": ["NO_EPILOGUE"], "no products": ["NO_MMA"],
             "no copies": ["NO_COPY"], "no products, no copies": ["NO_MMA", "NO_COPY"]}
@@ -95,11 +96,14 @@ def main():
     print(f"[trace] {len(events)} launches busy {sum(e['dur'] for e in events):.1f} us; "
           f"the pass takes {cs.time_ms(one_pass) * 1e3:.1f} us (CUDA events)")
 
-    src = os.path.join(_cuda.CSRC_DIR, "lmconv_fused.cu")
-    guarded = os.path.join(_cuda.BUILD_DIR, "lmconv_fused_parts.cu")
-    os.makedirs(_cuda.BUILD_DIR, exist_ok=True)
-    with open(guarded, "w") as f:
-        f.write(_guarded_source(src))
+    # the parts live in the layer body's header: a guarded copy of it goes
+    # beside a copy of the source that includes it
+    parts_dir = os.path.join(_cuda.BUILD_DIR, "k1_parts")
+    os.makedirs(parts_dir, exist_ok=True)
+    guarded = os.path.join(parts_dir, "lmconv_fused.cu")
+    shutil.copyfile(os.path.join(_cuda.CSRC_DIR, "lmconv_fused.cu"), guarded)
+    with open(os.path.join(parts_dir, "lmconv_layer.cuh"), "w") as f:
+        f.write(_guarded_source(os.path.join(_cuda.CSRC_DIR, "lmconv_layer.cuh")))
     procs = {}
     for name, macros in VARIANTS.items():
         out = os.path.join(_cuda.BUILD_DIR, f"lmconv_fused_{'_'.join(macros) or 'whole'}.so")

@@ -15,8 +15,12 @@ step uses onto the port's modules and returns their state dicts:
     :40-79), computed once here;
   * BatchNorm mean/var/scale/bias, StandingStatsBN buffers, NoiseBN
     gain_kernel/bias_kernel;
-  * the PixelCNN tree stays a dict of its Flax-named arrays (lmconv taps
-    keep their (k^2, Cin, Cout) layout for the kernels).
+  * the PixelCNN tree loads into the `LMPixelCNN` module by name
+    (`LMConv_i/{weight,bias,mask_weight}`, `GatedResnet_i/LMConv_{0,1}`,
+    `GatedResnet_i/Nin_0/Dense_0`, `Nin_0/Dense_0`); lmconv taps keep their
+    (k^2, Cin, Cout) layout.  That one module feeds all three engines: the
+    module path itself, and through `models.lmconv.flax_named_params` the
+    fused forward's packing (K1) and the per-layer kernel engine.
 """
 
 from __future__ import annotations
@@ -90,21 +94,18 @@ def merge_collections(variables: Dict) -> Dict:
 
 def from_jax_params(variables: Dict, cfg: Config) -> Dict[str, Dict]:
     """Flax variable trees -> {tree name: torch state dict} for every tree
-    the view step uses (unet, projector, vqvae, disc, classifier) plus the
-    PixelCNN arrays under "pixelcnn"."""
+    the view step uses (unet, projector, vqvae, disc, classifier,
+    pixelcnn)."""
     import torch
 
-    from pixelsynth_tpu_torch.pipeline import build_modules
+    from pixelsynth_tpu_torch.pipeline import build_modules, build_pixelcnn
 
     modules = build_modules(cfg, classifier_vars=variables.get("classifier"))
+    modules["pixelcnn"] = build_pixelcnn(cfg)
     out: Dict[str, Dict] = {}
     with torch.no_grad():
         for name, module in modules.items():
             if name in variables:
                 module.load_flax(merge_collections(variables[name]))
                 out[name] = module.state_dict()
-    if "pixelcnn" in variables:
-        out["pixelcnn"] = {
-            k: torch.tensor(np.asarray(v, np.float32))
-            for k, v in flatten_tree(variables["pixelcnn"]["params"]).items()}
     return out

@@ -66,6 +66,27 @@ def test_speculative_matches_sequential_at_low_temperature(setup):
         assert stats["n_forwards"] <= 32
 
 
+def test_speculative_without_at_falls_back_to_one_cell_per_forward(setup):
+    """A logits closure with no `.at` (the per-layer engines) takes the
+    sequential sampler: the same samples, and stats that count one forward
+    per background cell."""
+    fn, order, bg = setup
+    calls = []
+
+    def plain_fn(cur, filled):
+        calls.append(1)
+        return fn(cur, filled)
+
+    codes = torch.full((B, H, W), 3)
+    seq = ar_sample(fn, codes, order, bg, torch.Generator().manual_seed(0),
+                    num_classes=NC, temperature=1e-4)
+    out, stats = ar_sample_speculative(
+        plain_fn, codes, order, bg, torch.Generator().manual_seed(4),
+        num_classes=NC, temperature=1e-4, spec=12, return_stats=True)
+    assert out.shape == (B, H, W) and torch.equal(out, seq)
+    assert stats == {"n_forwards": 32, "max_n_bg": 32} and len(calls) == 32
+
+
 def test_speculative_exact_joint_two_cell_chain():
     """A 2-cell chain whose second conditional depends on the first cell's
     committed value: the speculative path must hit the analytic joint."""

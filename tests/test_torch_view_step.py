@@ -6,6 +6,15 @@ temperature is 1e-4, so sampling is an argmax chain on both sides (their
 random streams differ, but an argmax chain draws nothing); the test first
 checks the top-2 logit gap of every sampled cell, so it cannot flake on a
 near-tie.
+
+The same view is then driven under the other sampling backends: "xla" (the
+module path through the plain masked conv) and "pallas" with
+`sort_backend="pallas"` (the module path through K3's wrapper and the K5
+binner; on the CPU both wrappers take their plain versions), each against
+the JAX view step under the same config, at the tolerances of "fused".
+Off the TPU the JAX package itself routes `sort_backend="pallas"` to its
+library sort (`_bin_dispatch`); tests/test_torch_sort.py holds the two
+binners' tables equal.
 """
 
 import jax
@@ -21,6 +30,9 @@ from pixelsynth_tpu.pipeline import CloudState as JaxCloudState
 from pixelsynth_tpu.pipeline import PixelSynth as JaxPixelSynth
 from pixelsynth_tpu.scene import SceneGenerator as JaxSceneGenerator
 from pixelsynth_tpu_torch.config import Config
+from pixelsynth_tpu_torch.ops import masked_conv_kernel as K3
+from pixelsynth_tpu_torch.ops import sort_kernel as K5
+from pixelsynth_tpu_torch.ops import splat as torch_splat
 from pixelsynth_tpu_torch.pipeline import CloudState, PixelSynth, random_pixelcnn_params
 from pixelsynth_tpu_torch.scene import SceneGenerator
 from pixelsynth_tpu_torch.weights import from_jax_params, unflatten_tree
@@ -44,6 +56,15 @@ def tiny(cfg):
     return cfg
 
 
+def backends(cfg, sample_backend, sort_backend):
+    cfg.model.lmconv.sample_backend = sample_backend
+    cfg.model.splat.sort_backend = sort_backend
+    return cfg
+
+
+KW = dict(num_samples=2, temperature=1e-4, noise_mode="zero", cloud_capacity=CAP)
+
+
 @pytest.fixture(scope="module")
 def gens():
     jps = JaxPixelSynth(tiny(JaxConfig()))
@@ -62,12 +83,10 @@ def gens():
     pcnn = random_pixelcnn_params(cfg, torch.Generator().manual_seed(0))
     variables["pixelcnn"] = {"params": unflatten_tree(
         {n: jnp.asarray(v.numpy()) for n, v in pcnn.items()})}
-    kw = dict(num_samples=2, temperature=1e-4, noise_mode="zero",
-              cloud_capacity=CAP)
-    jgen = JaxSceneGenerator(jps, variables, **kw)
+    jgen = JaxSceneGenerator(jps, variables, **KW)
     ps = PixelSynth(cfg, device="cpu",
                     state_dicts=from_jax_params(jax.device_get(variables), cfg))
-    return jps, jgen, SceneGenerator(ps, **kw), variables
+    return jps, jgen, SceneGenerator(ps, **KW), variables
 
 
 def _input(seed):
@@ -78,9 +97,8 @@ def _input(seed):
         np.float32)
 
 
-@pytest.mark.filterwarnings("ignore:SceneGenerator")
-def test_view_step_matches_jax(gens):
-    jps, jgen, gen, variables = gens
+def _check_view(jps, jgen, gen, variables):
+    """One view through both packages; returns the port's outputs."""
     img = _input(1)
     I = np.eye(4, dtype=np.float32)[None]
     _, RT = get_rt_from_rot("R", I, 2, 2)
@@ -118,6 +136,47 @@ def test_view_step_matches_jax(gens):
     np.testing.assert_array_equal(sampled.numpy().reshape(S, -1)[bg_cells],
                                   logits.argmax(-1))
     np.testing.assert_allclose(best.numpy(), np.asarray(best_j), atol=2e-3)
+    return out, int(bg_cells[0].sum())
+
+
+@pytest.mark.filterwarnings("ignore:SceneGenerator")
+def test_view_step_matches_jax(gens):
+    _check_view(*gens)
+
+
+@pytest.mark.filterwarnings("ignore:SceneGenerator")
+@pytest.mark.parametrize("sample_backend,sort_backend",
+                         [("xla", "xla"), ("pallas", "pallas")])
+def test_view_step_backends_match_jax(gens, sample_backend, sort_backend):
+    """The slice of the per-layer engines: without `.at` both packages
+    sample one cell per forward through the module."""
+    variables = gens[3]
+    jps = JaxPixelSynth(backends(tiny(JaxConfig()), sample_backend, sort_backend))
+    jgen = JaxSceneGenerator(jps, variables, **KW)
+    cfg = backends(tiny(Config()), sample_backend, sort_backend)
+    ps = PixelSynth(cfg, device="cpu",
+                    state_dicts=from_jax_params(jax.device_get(variables), cfg))
+    convs, sorts = K3.PLAIN_CALLS["masked_conv"], K5.PLAIN_CALLS["sort_kv"]
+    binners = dict(torch_splat.BINNER_CALLS)
+    _, n_bg = _check_view(jps, jgen, SceneGenerator(ps, **KW), variables)
+    # which engine ran, by the wrappers' counts: 32 masked convs a forward
+    # and one forward per background cell through K3's wrapper, one K5 sort
+    # per splat -- or neither
+    kernel_path = sample_backend == "pallas"
+    assert K3.PLAIN_CALLS["masked_conv"] - convs == (32 * n_bg if kernel_path else 0)
+    assert K5.PLAIN_CALLS["sort_kv"] - sorts == int(sort_backend == "pallas")
+    took = {k: torch_splat.BINNER_CALLS[k] - binners[k] for k in binners}
+    assert took == {"counting": 0, "sort_kernel": int(sort_backend == "pallas"),
+                    "batched": int(sort_backend == "xla")}
+
+
+@pytest.mark.parametrize("field,value", [("sample_backend", "triton"),
+                                         ("weight_norm", True)])
+def test_pixelsynth_raises_on_lmconv_values_the_port_does_not_implement(field, value):
+    cfg = tiny(Config())
+    setattr(cfg.model.lmconv, field, value)
+    with pytest.raises(NotImplementedError, match=field):
+        PixelSynth(cfg, device="cpu")
 
 
 @pytest.mark.filterwarnings("ignore:SceneGenerator")
