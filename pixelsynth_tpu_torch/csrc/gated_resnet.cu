@@ -137,14 +137,6 @@ cudaError_t launch(Layer c1, Layer c2, const float* og, bf16* ue, int B,
   return cudaGetLastError();
 }
 
-// Images in flight at once; negative: a CUDA error.
-template <int F>
-int images_at_once(int HW) {
-  int resident = 0;
-  const cudaError_t e = resident_blocks<F>(&resident);
-  return e == cudaSuccess ? resident / (HW / TP) : -(int)e;
-}
-
 }  // namespace
 
 extern "C" {
@@ -191,21 +183,6 @@ int gated_resnet(const void* og, const void* a, const void* mask,
     case 64: return (int)launch<64>(c1, c2, ogp, uep, B, HW, st);
     case 80: return (int)launch<80>(c1, c2, ogp, uep, B, HW, st);
     default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// The number of images of H*W positions and width F that one round of the
-// launch works on at once: a launch of more images takes further rounds.
-int gated_resnet_images_at_once(int H, int W, int F) {
-  const int HW = H * W;
-  if (!width_ok(F) || HW % TP != 0) return -(int)cudaErrorInvalidValue;
-  switch (F) {
-    case 16: return images_at_once<16>(HW);
-    case 32: return images_at_once<32>(HW);
-    case 48: return images_at_once<48>(HW);
-    case 64: return images_at_once<64>(HW);
-    case 80: return images_at_once<80>(HW);
-    default: return -(int)cudaErrorInvalidValue;
   }
 }
 

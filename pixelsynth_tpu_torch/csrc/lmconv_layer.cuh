@@ -407,13 +407,25 @@ layer_kernel(Layer L, int HW) {
   layer_body<F, WIDE>(L, HW, b, p0, smem);
 }
 
+// `static`: each library that includes this header has its own copy of the
+// kernel, so it needs its own flag too (a local static of a function with
+// external linkage is one object across every library loaded).
 template <int F, bool WIDE>
-cudaError_t launch_layer_as(const Layer& L, int B, int HW, cudaStream_t st) {
+static cudaError_t launch_layer_as(const Layer& L, int B, int HW,
+                                   cudaStream_t st) {
   constexpr size_t smem = smem_bytes(F);
-  cudaError_t e = cudaFuncSetAttribute(
-      layer_kernel<F, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  // the shared-memory attribute is set once per instantiation and device
+  static int attr_dev = -1;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
+  if (dev != attr_dev) {
+    e = cudaFuncSetAttribute(
+        layer_kernel<F, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+    attr_dev = dev;
+  }
   layer_kernel<F, WIDE><<<B * HW / TP, NTHREADS, smem, st>>>(L, HW);
   return cudaGetLastError();
 }

@@ -29,7 +29,7 @@ from pixelsynth_tpu_torch.models.layers import (
     FlaxNamed, Nin, _t, concat_elu, order_rescale, pono,
 )
 from pixelsynth_tpu_torch.ops.masked_conv import (
-    locally_masked_conv2d, locally_masked_embed,
+    locally_masked_conv2d, locally_masked_embed, mask_rows,
 )
 from pixelsynth_tpu_torch.ops.masked_conv_kernel import (
     locally_masked_conv2d_kernel_vjp, raw_mask,
@@ -104,11 +104,18 @@ class LMConv(FlaxNamed):
             return locally_masked_embed(codes, filled, raw_mask(mask),
                                         self.weight, self.bias,
                                         num_classes=self.embed_classes)
-        if self.backend == "pallas" and self.mask_weight is None:
+        if self.backend == "pallas":
             w = self.weight if self.weight.requires_grad else self._kernel_weight()
-            return locally_masked_conv2d_kernel_vjp(
-                x, mask, w, self.bias, self.dilation,
-                self.compute_dtype or "bfloat16")
+            cdt = self.compute_dtype or "bfloat16"
+            out = locally_masked_conv2d_kernel_vjp(x, mask, w, self.bias,
+                                                   self.dilation, cdt)
+            if self.mask_weight is not None:
+                # the learned term on the mask itself is no part of the
+                # kernel: one (HW, k*k) @ (k*k, Cout) product beside it
+                B, H, W, _ = x.shape
+                mw = self.mask_weight.to(getattr(torch, cdt)).float()
+                out = out + mask_rows(raw_mask(mask), B, H, W).float() @ mw
+            return out
         dtype = torch.bfloat16 if self.compute_dtype == "bfloat16" else None
         return locally_masked_conv2d(x, raw_mask(mask), self.weight, self.bias,
                                      self.mask_weight, dilation=self.dilation,

@@ -73,20 +73,8 @@ def _lib():
     if not getattr(lib, "_typed", False):
         lib.gated_resnet.argtypes = [_P] * 12 + [_I] * 4 + [_P]
         lib.gated_resnet.restype = _I
-        lib.gated_resnet_images_at_once.argtypes = [_I] * 3
-        lib.gated_resnet_images_at_once.restype = _I
         lib._typed = True
     return lib
-
-
-def images_at_once(H: int, W: int, Fc: int) -> int:
-    """How many images one round of a K4 launch works on at this size (the
-    blocks the card keeps resident, over an image's H*W/128); a larger
-    batch takes further rounds inside the same launch."""
-    n = _lib().gated_resnet_images_at_once(H, W, Fc)
-    if n < 0:
-        _cuda.check(-n, "gated_resnet_images_at_once")
-    return n
 
 
 def gated_resnet_kernel(og, a, mask: MaskArg, w1, b1, w_skip, b_skip, w2, b2,

@@ -66,8 +66,13 @@ def test_module_matches_flax(feature_norm, conv_mask_weight, backend):
     m = torch.as_tensor(masks)
     with torch.no_grad():
         got_x = model(torch.as_tensor(oh), m[:, 0], m[:, 1], m[:, 2])
+        before = K3.PLAIN_CALLS["masked_conv"]
         got_c = model(None, m[:, 0], m[:, 1], m[:, 2],
                       codes=torch.as_tensor(codes), filled=torch.as_tensor(filled))
+    # "pallas" puts every masked conv (28 + 4) through K3's wrapper, with or
+    # without the mask_weight term; "xla" none
+    assert (K3.PLAIN_CALLS["masked_conv"] - before
+            == (32 if backend == "pallas" else 0))
     np.testing.assert_allclose(got_x.numpy(), want, **TOL)   # one-hot path
     # codes path: the embedding-gather first layer has no mask_weight term
     # (in either package), so with conv_mask_weight it is held to Flax's own
