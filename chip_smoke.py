@@ -11,10 +11,14 @@ prints the final ok line):
      shapes, timed with CUDA events (K1: pop 16, 32x32 codes, F=80, bf16;
      K2: W=256, 2 images x 131072 points, each accumulation; K3: pop 16,
      32x32, (Cin, Cout) = (160, 80), (160, 160) and, dilation 2, (80, 80),
-     bf16 and float32; K4: pop 16, 32x32, F=80, with and without the skip;
-     K5: the binning keys of 131072 points, (1, 2^19), and (2, 2^17),
-     exact against torch.sort(stable=True), which is also its library
-     yardstick);
+     bf16 and float32; K4: pop 16, 32x32, F=80, with and without the skip,
+     and 4 images of 16x16 and 17 of 32x32 (two rounds of one launch);
+     K1, K3 and K4 also on masks with every tap on and on masks that are 0
+     on whole 128-position tiles, the two edges of the (tile, tap) skip;
+     K5: the binning keys of 131072 points, (1, 2^19), and (2, 2^17), and
+     three hard rows of 2^14 (all keys equal, negative keys with both int32
+     extremes, descending keys), exact against torch.sort(stable=True),
+     which is also its library yardstick, and against both plain versions);
   3. the default path at full width: one `generate_view` at the Config()
      defaults (W=256, 32x32 codes, nr_filters 80, speculative 12) with
      seeded random weights and 16 candidates (K1, K2);
@@ -92,7 +96,7 @@ def phase_build():
     log(f"[build] nvcc sm_90a, {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Used" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
     nvcc = subprocess.run([_cuda.nvcc_path(), "--version"], capture_output=True,
                           text=True).stdout.strip().splitlines()[-1]
@@ -124,6 +128,18 @@ def _half_grid(side=32):
     return order, masks, bg_t
 
 
+def _mask_cases(masks):
+    """masks (B, 3, 9, HW) of an order -> {case: masks}: the order's own;
+    every tap of the two conv masks on; the conv masks 0 on the second and
+    the last 128-position tile (the two edges of the (tile, tap) skip)."""
+    all_on = masks.clone()
+    all_on[:, 1:] = 1.0
+    tiles_off = masks.clone()
+    tiles_off[:, 1:, :, 128:256] = 0.0
+    tiles_off[:, 1:, :, -128:] = 0.0
+    return {"order": masks, "all on": all_on, "tiles off": tiles_off}
+
+
 def _pixelcnn_params(Fc=80, seed=0):
     """Flax-named PixelCNN arrays at width Fc from a seed (CPU tensors)."""
     import torch
@@ -135,7 +151,7 @@ def _pixelcnn_params(Fc=80, seed=0):
     return cfg, random_pixelcnn_params(cfg, torch.Generator().manual_seed(seed))
 
 
-def _k1_inputs(B=16, side=32, Fc=80, seed=0):
+def _k1_inputs(B=16, side=32, Fc=80, seed=0, case="order"):
     import numpy as np
     import torch
     from pixelsynth_tpu_torch.ops.lmconv_fused import (
@@ -145,7 +161,7 @@ def _k1_inputs(B=16, side=32, Fc=80, seed=0):
     packed = pack_lmconv_params(params, nr_resnet=2, device=DEVICE)
     rng = np.random.default_rng(seed)
     _, masks, _ = _half_grid(side)
-    masks = masks.repeat(B, 1, 1, 1)
+    masks = _mask_cases(masks.repeat(B, 1, 1, 1))[case]
     codes = torch.as_tensor(rng.integers(0, 512, (B, side, side)), device=DEVICE)
     filled = torch.as_tensor(rng.random((B, side, side)) < 0.6, device=DEVICE).float()
     u0 = embed_input(packed, codes, filled, masks[:, 0], num_classes=512)
@@ -171,9 +187,31 @@ def _k1_flops(mu, md, Fc, nr=2):
 def phase_k1(report, B=16, side=32, Fc=80):
     import torch
     from pixelsynth_tpu_torch.ops import lmconv_fused as K1
+    from pixelsynth_tpu_torch.ops.conv_pack import skipped_share
 
-    packed, u0, mu, md, codes, filled, masks = _k1_inputs(B, side, Fc)
     kw = dict(H=side, W=side, nr=2, dilation=2, compute_dtype="bfloat16")
+    # the two edges of the (tile, tap) skip, held as the main case is below
+    for case in ("all on", "tiles off"):
+        packed, u0, mu, md, *_ = _k1_inputs(B, side, Fc, case=case)
+        stack_p = K1.up_plain(u0, mu, md, packed, W=side, nr=2, dilation=2,
+                              compute_dtype="bfloat16")
+        out_p = K1.down_plain(stack_p, mu, md, packed, W=side, nr=2, dilation=2,
+                              compute_dtype="bfloat16")
+        e_up = float((K1.up(u0, mu, md, packed, **kw).float() - stack_p.float()).abs().max())
+        e_dn = float((K1.down(stack_p, mu, md, packed, **kw) - out_p).abs().max())
+        t_up = 0.02 * max(1.0, float(stack_p.float().abs().max()))
+        t_dn = 0.02 * max(1.0, float(out_p.abs().max()))
+        tu, td = K1.tile_tables(mu, md)
+        log(f"[K1] masks {case!r} (steps skipped {skipped_share(tu):.3f} / "
+            f"{skipped_share(td):.3f}): up {e_up:.3e} (tol {t_up:.3e}), "
+            f"down {e_dn:.3e} (tol {t_dn:.3e})")
+        if not (e_up <= t_up and e_dn <= t_dn):
+            raise AssertionError(f"K1 disagrees with its plain version, masks {case!r}")
+    packed, u0, mu, md, codes, filled, masks = _k1_inputs(B, side, Fc)
+    tu, td = K1.tile_tables(mu, md)
+    log(f"[K1] masks of the half-empty grid: (tile, tap) steps skipped "
+        f"{skipped_share(tu):.3f} (dilation 1), {skipped_share(td):.3f} (dilation 2)")
+    kw["tables"] = (tu, td)     # made once, as the sampler makes them
     stack_k = K1.up(u0, mu, md, packed, **kw)
     stack_p = K1.up_plain(u0, mu, md, packed, W=side, nr=2, dilation=2,
                           compute_dtype="bfloat16")
@@ -303,10 +341,12 @@ def phase_k3(report, B=16, side=32, Fc=80):
     the bf16 kernel and the float32 kernel against the plain version."""
     import torch
     from pixelsynth_tpu_torch.ops import masked_conv_kernel as K3
+    from pixelsynth_tpu_torch.ops.conv_pack import prepare_taps, skipped_share
     from pixelsynth_tpu_torch.ops.lmconv_fused import fold_boundary_masks
 
     _, masks, _ = _half_grid(side)
     masks = masks.repeat(B, 1, 1, 1)
+    cases = _mask_cases(masks)
     gen = torch.Generator().manual_seed(3)
     # (Cin, Cout, dilation, which mask, launches per module-path forward)
     shapes = [(2 * Fc, Fc, 1, 1, 14), (2 * Fc, 2 * Fc, 1, 1, 14), (Fc, Fc, 2, 2, 4)]
@@ -338,9 +378,19 @@ def phase_k3(report, B=16, side=32, Fc=80):
         if not (err <= tol and err32 <= 1e-4):
             raise AssertionError(f"K3 ({cin},{cout}) disagrees with its plain version")
         worst = max(worst, err)
+        for case in ("all on", "tiles off"):
+            pmc = K3.prepare_mask(cases[case][:, mi])
+            e = float((K3.locally_masked_conv2d_kernel(x, pmc, w, b, **kw)
+                       - K3.locally_masked_conv2d_plain(x, pmc, w, b, **kw)).abs().max())
+            log(f"[K3] ({cin},{cout}) d{dil}, masks {case!r} (steps skipped "
+                f"{skipped_share(pmc.taps):.3f}): bf16 max|kernel-plain| {e:.3e}")
+            if not e <= tol:
+                raise AssertionError(f"K3 ({cin},{cout}) disagrees, masks {case!r}")
+            worst = max(worst, e)
         wb = w.to(torch.bfloat16)
+        packed = prepare_taps(w, K3.kernel_width(cin, cout))   # once, as a model does
         ms = time_ms(lambda: K3.locally_masked_conv2d_kernel(
-            x, pm, wb, b, compute_dtype="bfloat16", **kw))
+            x, pm, packed, b, compute_dtype="bfloat16", **kw))
         ms32 = time_ms(lambda: K3.locally_masked_conv2d_kernel(
             x, pm, w, b, compute_dtype="float32", **kw), reps=3, rounds=3)
         pms = time_ms(lambda: K3.locally_masked_conv2d_plain(
@@ -368,47 +418,89 @@ def phase_k3(report, B=16, side=32, Fc=80):
         f"(plain {tot['pms'] / n:.3f} ms)")
 
 
-def phase_k4(report, B=16, side=32, Fc=80):
+def _k4_case(B, side, Fc, case, gen):
+    """Inputs of one K4 call: (B, side, side, Fc) activations, the masks of
+    `_half_grid(side)` in the given `_mask_cases` case, seeded weights."""
     import torch
-    from pixelsynth_tpu_torch.ops import gated_resnet_kernel as K4
-    from pixelsynth_tpu_torch.ops.lmconv_fused import fold_boundary_masks
     from pixelsynth_tpu_torch.ops.masked_conv_kernel import prepare_mask
 
     _, masks, _ = _half_grid(side)
-    masks = masks.repeat(B, 1, 1, 1)
-    pm = prepare_mask(masks[:, 1])
-    gen = torch.Generator().manual_seed(4)
+    masks = _mask_cases(masks.repeat(B, 1, 1, 1))[case]
     og = torch.randn((B, side, side, Fc), generator=gen).to(DEVICE)
     a = torch.randn((B, side, side, Fc), generator=gen).to(DEVICE)
     bound = 1.0 / (18 * Fc) ** 0.5
     w1, b1 = _uniform(gen, (9, 2 * Fc, Fc), bound), _uniform(gen, (Fc,), bound)
     w2, b2 = _uniform(gen, (9, 2 * Fc, 2 * Fc), bound), _uniform(gen, (2 * Fc,), bound)
     ws, bs = _uniform(gen, (2 * Fc, Fc), (2 * Fc) ** -0.5), _uniform(gen, (Fc,), 0.1)
+    return masks, prepare_mask(masks[:, 1]), og, a, (w1, b1, ws, bs, w2, b2)
+
+
+def _k4_check(tag, args):
+    """One K4 call against the plain version: (max, mean) |kernel - plain|.
+    bf16 dot operands on both sides; a conv1 sum that straddles a bf16
+    rounding boundary moves conv2's operand by one bf16 ulp, and two PONOs
+    rescale it.  Such flips are rare and small, so the worst element is held
+    to 2% of a unit (inside the 2% of the output's range that K1 is given)
+    and the mean to 1e-4: a wrong skip bias or a shifted tap moves every
+    element by far more than that."""
+    import torch
+    from pixelsynth_tpu_torch.ops import gated_resnet_kernel as K4
+
+    out_k = K4.gated_resnet_kernel(*args)
+    out_p = K4.gated_resnet_plain(*args)
+    torch.cuda.synchronize()
+    err = float((out_k - out_p).abs().max())
+    mean_err = float((out_k - out_p).abs().mean())
+    tol, mean_tol = 0.02, 1e-4
+    log(f"[K4] {tag}: max|kernel-plain| {err:.3e} (max|ref| "
+        f"{float(out_p.abs().max()):.2f}, tol {tol:.1e}), mean {mean_err:.3e} "
+        f"(tol {mean_tol:.0e})")
+    if not (err <= tol and mean_err <= mean_tol):
+        raise AssertionError(f"K4 disagrees with its plain version ({tag})")
+    return err
+
+
+def phase_k4(report, B=16, side=32, Fc=80, others=((4, 16), (17, 32))):
+    """K4 with and without the skip at (B, side), timed; on the same size
+    with every tap on and with whole tiles off; and at the `others` sizes
+    (4 images of 16x16: two blocks an image; 17 of 32x32: two rounds)."""
+    import torch
+    from pixelsynth_tpu_torch.ops import gated_resnet_kernel as K4
+    from pixelsynth_tpu_torch.ops.conv_pack import prepare_taps, skipped_share
+    from pixelsynth_tpu_torch.ops.lmconv_fused import fold_boundary_masks
+
+    gen = torch.Generator().manual_seed(4)
+
+    def args_of(skip, pm, og, a, weights):
+        w1, b1, ws, bs, w2, b2 = weights
+        return (og, a if skip else None, pm, w1, b1, ws if skip else None,
+                bs if skip else None, w2, b2)
+
+    worst = 0.0
+    for b_, side_ in others:
+        _, pm, og, a, weights = _k4_case(b_, side_, Fc, "order", gen)
+        for skip in (False, True):
+            worst = max(worst, _k4_check(f"({b_}, {side_}) skip={skip}",
+                                         args_of(skip, pm, og, a, weights)))
+    for case in ("all on", "tiles off"):
+        _, pm, og, a, weights = _k4_case(B, side, Fc, case, gen)
+        for skip in (False, True):
+            worst = max(worst, _k4_check(
+                f"masks {case!r} (steps skipped {skipped_share(pm.taps):.3f}) "
+                f"skip={skip}", args_of(skip, pm, og, a, weights)))
+    masks, pm, og, a, weights = _k4_case(B, side, Fc, "order", gen)
+    w1, b1, ws, bs, w2, b2 = weights
+    log(f"[K4] masks of the half-empty grid: (tile, tap) steps skipped "
+        f"{skipped_share(pm.taps):.3f}")
     pairs = float(fold_boundary_masks(masks[:, 1], side, side, 3, 1).sum())
     res = {}
     for skip in (False, True):
-        args = (og, a if skip else None, pm, w1, b1, ws if skip else None,
-                bs if skip else None, w2, b2)
-        out_k = K4.gated_resnet_kernel(*args)
-        out_p = K4.gated_resnet_plain(*args)
-        torch.cuda.synchronize()
-        err = float((out_k - out_p).abs().max())
-        mean_err = float((out_k - out_p).abs().mean())
-        ref = float(out_p.abs().max())
-        # bf16 dot operands on both sides; a conv1 sum that straddles a bf16
-        # rounding boundary moves conv2's operand by one bf16 ulp, and two
-        # PONOs rescale it.  Such flips are rare and small, so the worst
-        # element is held to 2% of a unit (inside the 2% of the output's
-        # range that K1 is given) and the mean to 1e-4: a wrong skip bias or
-        # a shifted tap moves every element by far more than that.
-        tol, mean_tol = 0.02, 1e-4
-        log(f"[K4] skip={skip}: max|kernel-plain| {err:.3e} (max|ref| {ref:.2f}, "
-            f"tol {tol:.1e}), mean {mean_err:.3e} (tol {mean_tol:.0e})")
-        if not (err <= tol and mean_err <= mean_tol):
-            raise AssertionError("K4 disagrees with its plain version")
-        bf = torch.bfloat16
-        fast = (og, args[1], pm, w1.to(bf), b1, ws.to(bf) if skip else None,
-                args[6], w2.to(bf), b2)
+        args = args_of(skip, pm, og, a, weights)
+        err = _k4_check(f"({B}, {side}) skip={skip}", args)
+        # the weights packed once, as the per-layer engine holds them
+        fast = (og, args[1], pm, prepare_taps(w1, Fc), b1,
+                prepare_taps(ws[None], Fc) if skip else None, args[6],
+                prepare_taps(w2, Fc), b2)
         ms = time_ms(lambda: K4.gated_resnet_kernel(*fast))
         pms = time_ms(lambda: K4.gated_resnet_plain(*args), reps=3, rounds=3)
         flops = 2.0 * pairs * (2 * Fc * Fc + 4 * Fc * Fc)
@@ -422,7 +514,7 @@ def phase_k4(report, B=16, side=32, Fc=80):
         log(f"[K4] skip={skip}: {ms:.4f} ms kernel, {pms:.3f} ms plain, "
             f"{flops / 1e9:.2f} GFLOP needed, {by / 1e6:.1f} MB, "
             f"bound {max(t_ops, t_bytes):.4f} ms")
-        res[skip] = (err, ms, pms, t_ops, t_bytes)
+        res[skip] = (max(err, worst), ms, pms, t_ops, t_bytes)
     # one entry: the mean over a forward's 14 launches (6 without, 8 with skip)
     mean = [(6 * res[False][i] + 8 * res[True][i]) / 14 for i in range(1, 5)]
     report["gated_resnet"] = _entry(
@@ -431,35 +523,65 @@ def phase_k4(report, B=16, side=32, Fc=80):
         max(res[False][0], res[True][0]), *mean)
 
 
+def _k5_hard_rows(E=1 << 14, seed=5):
+    """Three rows a sort gets wrong first: all keys equal (stability alone
+    decides the indices), negative keys with both int32 extremes, keys
+    already descending."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    neg = rng.integers(-2 ** 31, 2 ** 31, E, dtype=np.int64)
+    neg[:4] = [-2 ** 31, 2 ** 31 - 1, 2 ** 31 - 1, -2 ** 31]
+    rows = {"all keys equal": np.full(E, 7, np.int64),
+            "negative keys, int32 extremes": neg,
+            "descending keys": np.arange(E, 0, -1, dtype=np.int64) - E // 2}
+    return {k: torch.as_tensor(v.astype(np.int32)[None], device=DEVICE)
+            for k, v in rows.items()}
+
+
 def phase_k5(report, W=256):
-    """K5 on real binning keys: `_k2_inputs`-style points through the
-    binner's key function, at (1, 2^19) and (2, 2^17); exact."""
+    """K5 on real binning keys (`_k2_inputs`-style points through the
+    binner's key function) at (1, 2^19) and (2, 2^17), and on three hard
+    rows of 2^14: exact against torch.sort(stable=True) and against both
+    plain versions (the radix passes in tensor ops; the TPU kernel's
+    network)."""
     import torch
     from pixelsynth_tpu_torch.config import SplatConfig
     from pixelsynth_tpu_torch.ops import sort_kernel as K5
     from pixelsynth_tpu_torch.ops.splat import _image_sort_keys
 
-    cfg = SplatConfig()
-    for B, N, main in ((1, 65536 * 2, True), (2, 32768, False)):
-        _, pts, _, vld = _k2_inputs(W=W, N=N)
-        keys, _ = _image_sort_keys(pts[:B], vld[:B], W, cfg)
-        E = keys.shape[1]
+    def check(tag, keys):
         sk, sv = K5.sort_kv_kernel(keys)
         ref_k, ref_v = torch.sort(keys, dim=1, stable=True)
         torch.cuda.synchronize()
-        same = bool(torch.equal(sk, ref_k)) and bool(torch.equal(sv.long(), ref_v))
         n_bad = int((sk != ref_k).sum() + (sv.long() != ref_v).sum())
-        log(f"[K5] ({B}, 2^{E.bit_length() - 1}) keys, {int(keys.unique().numel())} "
-            f"distinct: equal to torch.sort(stable=True) in keys and indices: {same}")
-        if not same:
-            raise AssertionError(f"K5 differs from a stable sort in {n_bad} places")
+        plains = {"radix passes": K5.sort_kv_radix_plain(keys),
+                  "network": K5.sort_kv_plain(keys)}
+        same_plain = {name: bool(torch.equal(pk, sk) and torch.equal(pv, sv))
+                      for name, (pk, pv) in plains.items()}
+        log(f"[K5] {tag}, {int(keys.unique().numel())} distinct: equal to "
+            f"torch.sort(stable=True) in keys and indices: {n_bad == 0}; to the "
+            f"plain versions: {json.dumps(same_plain)}")
+        if n_bad:
+            raise AssertionError(f"K5 differs from a stable sort in {n_bad} places ({tag})")
+        if not all(same_plain.values()):
+            raise AssertionError(f"K5 differs from a plain version ({tag})")
+
+    cfg = SplatConfig()
+    log(f"[K5] launches a sort (kernels and the memset): {K5.launches_per_sort()}")
+    for tag, keys in _k5_hard_rows().items():
+        check(f"(1, 2^14) {tag}", keys)
+    for B, N, main in ((2, 32768, False), (1, 65536 * 2, True)):
+        _, pts, _, vld = _k2_inputs(W=W, N=N)
+        keys, _ = _image_sort_keys(pts[:B], vld[:B], W, cfg)
+        E = keys.shape[1]
+        check(f"({B}, 2^{E.bit_length() - 1}) binning keys", keys)
         if not main:
             continue
-        pk, pv = K5.sort_kv_plain(keys)
-        if not (torch.equal(pk, sk) and torch.equal(pv, sv)):
-            raise AssertionError("K5 differs from its plain network")
         ms = time_ms(lambda: K5.sort_kv_kernel(keys))
-        pms = time_ms(lambda: K5.sort_kv_plain(keys), warmup=1, reps=1, rounds=3)
+        pms = time_ms(lambda: K5.sort_kv_radix_plain(keys), warmup=1, reps=1, rounds=3)
+        nms = time_ms(lambda: K5.sort_kv_plain(keys), warmup=1, reps=1, rounds=3)
         lib = time_ms(lambda: torch.sort(keys, dim=1, stable=True))
         # bytes: each key read once (4 B), each sorted key and index written
         # once (8 B): 12 B an element; no floating-point work
@@ -468,8 +590,9 @@ def phase_k5(report, W=256):
         report["sort_kv"] = _entry(
             "sort_kv", "sort_kv.cu", "pixelsynth_tpu/ops/sort_pallas.py:158",
             0.0, ms, pms, 0.0, t_bytes, library_ms=lib)
-        log(f"[K5] sort_kv (1, 2^19): {ms:.4f} ms kernel, {pms:.2f} ms plain network, "
-            f"{lib:.4f} ms torch.sort(stable=True), bound {t_bytes:.4f} ms "
+        log(f"[K5] sort_kv (1, 2^19): {ms:.4f} ms kernel, {pms:.2f} ms plain radix "
+            f"passes, {nms:.2f} ms plain network, {lib:.4f} ms "
+            f"torch.sort(stable=True), bound {t_bytes:.4f} ms "
             f"(12 B x {B * E} elements / 3.35 TB/s)")
 
 
@@ -585,6 +708,15 @@ def phase_view(report, cfg=None):
         f"{n_bg / max(1, st['n_forwards']):.2f}")
     record_launches(report, launches, ("lmconv_up", "lmconv_down", "splat_blend"),
                     "the default view")
+    # what the (tile, tap) skip saves on this view's own order
+    from pixelsynth_tpu_torch.ops.conv_pack import skipped_share
+    from pixelsynth_tpu_torch.ops.lmconv_fused import fold_boundary_masks, tile_tables
+    side, dil = cfg.model.lmconv.obs[1], cfg.model.lmconv.max_dilation
+    tu, td = tile_tables(fold_boundary_masks(out["masks"][:, 1], side, side, 3, 1),
+                         fold_boundary_masks(out["masks"][:, 2], side, side, 3, dil))
+    log(f"[view] (tile, tap) steps skipped on this view's masks: "
+        f"{skipped_share(tu):.3f} (dilation 1), {skipped_share(td):.3f} "
+        f"(dilation {dil})")
     # capacity truncation of this view's splat
     _, _, counts = splat._bin_points_batched(pts, valid, cfg.model.W, cfg.model.splat,
                                              return_counts=True)

@@ -27,23 +27,30 @@
 //   * a round is three phases with a grid barrier between them (it orders
 //     the blocks' global-memory writes):
 //       phase 0  concat_elu(og) of the block's tile -> bf16 scratch `ue`
-//       phase 1  conv1 from `ue` (cp.async ring + wmma, lmconv_layer.cuh),
-//                PONO, + nin skip (its operand concat_elu(a) is staged from
-//                the f32 `a`), concat_elu -> bf16 scratch `xe`
+//       phase 1  conv1 from `ue` (the ring of lmconv_layer.cuh: a producer
+//                warpgroup copies, two consumer warpgroups multiply with
+//                wgmma), PONO, + nin skip (two more ring steps, their
+//                operand concat_elu(a) made by the producer from the f32
+//                `a`), concat_elu -> bf16 scratch `xe`
 //       phase 2  conv2 from `xe`, split, PONO, gate, residual -> out (f32)
-//     and the intermediates never leave L2.
+//     and the intermediates never leave L2.  The ring's barriers are set
+//     up once a launch; its step count runs on through both convs and all
+//     rounds.
 // The wrapper allocates both scratches.  Elementwise maths is f32; only
 // the matmul operands are bf16.  PONO is the two-pass form of the TPU
 // kernel's _pono (:40-44).  The skip is a launch-time flag (a == null: no
 // skip term at all, no zero weights).  The masks are the raw (B, HW, 9)
-// ones with {0, 1} entries; the load zero-pads at the image border.
+// ones with {0, 1} entries; the load zero-pads at the image border; a tap
+// that is off on a whole 128-position tile is skipped (`tile_taps`).
 //
 // Bound on this card (pop 16, 32x32, F=80): 2 * 9 * 16384 * (160*80 +
 // 160*160) + 2 * 16384 * 160 * 80 = 11.7 GFLOP dense on bf16 tensor cores
 // (11.9 us at 989 TFLOP/s) against ~16 MB of og, a, out and masks (4.8 us
 // at 3.35 TB/s): operations bound it.  What the launch takes is one
 // block's latency through both convs of its 128 positions (the same time
-// at 4 images as at 16), far above either.
+// at 4 images as at 16) plus phase 0 and the two grid barriers; the layer
+// body overlaps copies, products and the other warpgroup's epilogue, and
+// skips the taps the masks turn off (PERF.md has the split).
 
 #include <cooperative_groups.h>
 
@@ -60,10 +67,13 @@ namespace {
 // an image left to do.
 template <int F>
 __global__ void __launch_bounds__(NTHREADS, 1)
-gated_resnet_kernel(Layer c1, Layer c2, const float* og, bf16* ue, int HW,
-                    int B) {
+gated_resnet_kernel(const __grid_constant__ Layer c1,
+                    const __grid_constant__ Layer c2, const float* og,
+                    bf16* ue, int HW, int B) {
   extern __shared__ __align__(128) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
+  ring_init<F>(smem);
+  uint32_t it = 0;
   const int tiles = HW / TP;
   const int groups = gridDim.x / tiles;
   const int grp = blockIdx.x / tiles;
@@ -72,23 +82,42 @@ gated_resnet_kernel(Layer c1, Layer c2, const float* og, bf16* ue, int HW,
   for (int b0 = 0; b0 < B; b0 += groups) {
     const int b = b0 + grp;
     const bool active = b < B;
+#ifndef LMK_NO_PHASE0
     if (active) {
+      // 8 channels a thread: 32 bytes of og in, 16 bytes of each half out
       const size_t base = ((size_t)b * HW + p0) * F;
-      for (int idx = threadIdx.x; idx < TP * F; idx += NTHREADS) {
-        const int r = idx / F;
-        const int c = idx - r * F;
-        float pos, neg;
-        elu_halves(og[base + idx], pos, neg);
-        ue[2 * (base + (size_t)r * F) + c] = __float2bfloat16(pos);
-        ue[2 * (base + (size_t)r * F) + F + c] = __float2bfloat16(neg);
+      constexpr int VPR = F / 8;
+      for (int idx = threadIdx.x; idx < TP * VPR; idx += NTHREADS) {
+        const int r = idx / VPR;
+        const int c = (idx - r * VPR) * 8;
+        float x[8];
+        load8(og + base + (size_t)r * F + c, x);
+        uint32_t pos[4], neg[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float p0v, n0v, p1v, n1v;
+          elu_halves(x[2 * i], p0v, n0v);
+          elu_halves(x[2 * i + 1], p1v, n1v);
+          pos[i] = pack_bf16(p0v, p1v);
+          neg[i] = pack_bf16(n0v, n1v);
+        }
+        bf16* row = ue + 2 * (base + (size_t)r * F);
+        *reinterpret_cast<uint4*>(row + c) = make_uint4(pos[0], pos[1], pos[2], pos[3]);
+        *reinterpret_cast<uint4*>(row + F + c) =
+            make_uint4(neg[0], neg[1], neg[2], neg[3]);
       }
     }
+#endif
+#ifndef LMK_NO_GRID_SYNC
     grid.sync();
-    if (active) layer_body<F, false>(c1, HW, b, p0, smem);
+#endif
+    if (active) layer_body<F, false, false>(c1, HW, b, p0, smem, it);
+#ifndef LMK_NO_GRID_SYNC
     grid.sync();
-    if (active) layer_body<F, true>(c2, HW, b, p0, smem);
-    // the next round writes other images' rows of `ue` and `xe`, and its
-    // first use of shared memory comes after a barrier
+#endif
+    if (active) layer_body<F, true, false>(c2, HW, b, p0, smem, it);
+    // the next round writes other images' rows of `ue` and `xe`, and the
+    // rows' on/off bits in shared memory are rewritten after a barrier
   }
 }
 
@@ -142,13 +171,15 @@ cudaError_t launch(Layer c1, Layer c2, const float* og, bf16* ue, int B,
 extern "C" {
 
 // og (B, HW, F) f32; a (B, HW, F) f32 or null (no skip); mask (B, HW, 9)
-// f32 with {0, 1} entries, not boundary-folded; w1 (9, 2F, F) bf16, b1 (F);
+// f32 with {0, 1} entries, not boundary-folded; tile_taps (B, HW/128, 9)
+// int32 (or null: every tap is copied); w1 (9, 2F, F) bf16, b1 (F);
 // ws (2F, F) bf16 and bs (F), read only with a; w2 (9, 2F, 2F) bf16,
-// b2 (2F); out (B, HW, F) f32; scratch ue, xe (B, HW, 2F) bf16.
+// b2 (2F), the three weights as packed images (ops/conv_pack.py);
+// out (B, HW, F) f32; scratch ue, xe (B, HW, 2F) bf16.
 // HW must be a multiple of 128, and one image's HW / 128 blocks must be
 // resident on the card together.
 int gated_resnet(const void* og, const void* a, const void* mask,
-                 const void* w1, const void* b1, const void* ws,
+                 const void* tile_taps, const void* w1, const void* b1, const void* ws,
                  const void* bs, const void* w2, const void* b2, void* out,
                  void* ue, void* xe, int B, int H, int W, int F,
                  void* stream) {
@@ -158,7 +189,7 @@ int gated_resnet(const void* og, const void* a, const void* mask,
   int sh[9];
   make_shifts(sh, W, 1);
   Layer c1 = conv_layer((const bf16*)ue, n2, 2 * F, (const float*)mask,
-                        (const bf16*)w1, (const float*)b1, F, sh);
+                        (const int*)tile_taps, (const bf16*)w1, (const float*)b1, F, sh);
   guard_image(c1, H, W, 1);
   c1.pono_two_pass = 1;
   if (a != nullptr) {
@@ -168,7 +199,7 @@ int gated_resnet(const void* og, const void* a, const void* mask,
   }
   c1.out_elu = (bf16*)xe;
   Layer c2 = conv_layer((const bf16*)xe, n2, 2 * F, (const float*)mask,
-                        (const bf16*)w2, (const float*)b2, 2 * F, sh);
+                        (const int*)tile_taps, (const bf16*)w2, (const float*)b2, 2 * F, sh);
   guard_image(c2, H, W, 1);
   c2.pono_two_pass = 1;
   c2.og = (const float*)og;

@@ -11,8 +11,10 @@
 // block's shared memory, so activations stay in device memory (a few MB,
 // resident in the 50 MB L2) and each masked conv layer is one launch of
 // the layer body in lmconv_layer.cuh (128 positions and all output
-// channels a block; cp.async ring over (tap, K slice) steps; wmma; PONO,
-// nin skip and gate in the epilogue).  Every conv input is written once,
+// channels a block; a producer warpgroup fills a four-stage ring of (tap,
+// K slice) steps, two consumer warpgroups multiply with wgmma; steps whose
+// tap is off on the whole tile are skipped; PONO, nin skip and gate in an
+// epilogue from the registers).  Every conv input is written once,
 // by the producing layer's epilogue, as the bf16 operand the next matmul
 // reads: concat_elu halves (K = 2F), or bf16(x) (K = F) for the dilated
 // convs (the skip stack entry itself in the up pass).  The masks are
@@ -21,9 +23,9 @@
 //
 // Bound on this card (pop 16, 32x32 grid, F=80): ~10.6 GFLOP per
 // candidate per forward (dense taps) on bf16 tensor cores against ~70 MB
-// of traffic, so compute bounds it (0.17 ms at 989 TFLOP/s); this simple
-// version issues wmma from a two-stage ring, without TMA, wgmma or warp
-// specialisation, and sits well above that bound (PERF.md).
+// of traffic, so compute bounds it (0.17 ms at 989 TFLOP/s).  What is left
+// above the bound is K1's own: 34 launches a forward, each one wave of
+// 128 blocks whose latency through a layer is the launch's time (PERF.md).
 
 #include "lmconv_layer.cuh"
 
@@ -67,11 +69,13 @@ extern "C" {
 
 // Up pass (lmconv_fused.py _up_kernel).  Weights of the n_up = 3*nr gated
 // resnets: w1 (n_up, 9, 2F, F) bf16, b1 (n_up, F); w2 (n_up, 9, 2F, 2F)
-// bf16, b2 (n_up, 2F); dilated convs dw (2, 9, F, F) bf16, db (2, F).
-// u0 (B, HW, F) f32; mu/md (B, HW, 9) f32; stack out (B, 3nr+3, HW, F)
+// bf16, b2 (n_up, 2F); dilated convs dw (2, 9, F, F) bf16, db (2, F);
+// every conv weight as its packed image (ops/conv_pack.py).
+// u0 (B, HW, F) f32; mu/md (B, HW, 9) f32 and their tile tables tu/td
+// (B, HW/128, 9) int32; stack out (B, 3nr+3, HW, F)
 // bf16; scratch u_a, u_b (B, HW, F) f32 and ue, xe (B, HW, 2F) bf16.
 int lmconv_fused_up(const void* u0, const void* mu, const void* md,
-                    const void* w1, const void* b1, const void* w2,
+                    const void* tu, const void* td, const void* w1, const void* b1, const void* w2,
                     const void* b2, const void* dw, const void* db,
                     void* stack, void* u_a, void* u_b, void* ue, void* xe,
                     int B, int H, int W, int F, int nr, int dilation,
@@ -95,12 +99,12 @@ int lmconv_fused_up(const void* u0, const void* mu, const void* md,
   int cur = 0, g = 0, s = 1;
   for (int blk = 0; blk < 3; ++blk) {
     for (int r = 0; r < nr; ++r) {
-      Layer c1 = conv_layer(uel, 2 * n_per, 2 * F, (const float*)mu,
+      Layer c1 = conv_layer(uel, 2 * n_per, 2 * F, (const float*)mu, (const int*)tu,
                             (const bf16*)w1 + (size_t)g * 9 * 2 * F * F,
                             (const float*)b1 + (size_t)g * F, F, s1);
       c1.out_elu = xel;
       if ((e = launch_layer(c1, B, HW, F, st)) != cudaSuccess) return e;
-      Layer c2 = conv_layer(xel, 2 * n_per, 2 * F, (const float*)mu,
+      Layer c2 = conv_layer(xel, 2 * n_per, 2 * F, (const float*)mu, (const int*)tu,
                             (const bf16*)w2 + (size_t)g * 9 * 4 * F * F,
                             (const float*)b2 + (size_t)g * 2 * F, 2 * F, s1);
       c2.og = u[cur];
@@ -115,7 +119,7 @@ int lmconv_fused_up(const void* u0, const void* mu, const void* md,
     if (blk < 2) {
       // the dilated conv reads bf16(u): the stack entry just written
       Layer d = conv_layer(stk + (size_t)(s - 1) * n_per, sb, F,
-                           (const float*)md,
+                           (const float*)md, (const int*)td,
                            (const bf16*)dw + (size_t)blk * 9 * F * F,
                            (const float*)db + (size_t)blk * F, F, sd);
       d.out = u[1 - cur];
@@ -136,7 +140,7 @@ int lmconv_fused_up(const void* u0, const void* mu, const void* md,
 // The stack is popped top-first from entry 3nr+2.  out (B, HW, F) f32;
 // scratch u_b (B, HW, F) f32, ue, xe (B, HW, 2F) bf16, ubf (B, HW, F) bf16.
 int lmconv_fused_down(const void* stack, const void* mu, const void* md,
-                      const void* w1, const void* b1, const void* ws,
+                      const void* tu, const void* td, const void* w1, const void* b1, const void* ws,
                       const void* bs, const void* w2, const void* b2,
                       const void* dw, const void* db, void* out, void* u_b,
                       void* ue, void* xe, void* ubf, int B, int H, int W,
@@ -162,7 +166,7 @@ int lmconv_fused_down(const void* stack, const void* mu, const void* md,
   int cur = 0, g = 0, top = 3 * nr + 1;
   for (int i = 0; i < 3; ++i) {
     for (int r = 0; r < down_nr[i]; ++r) {
-      Layer c1 = conv_layer(uel, 2 * n_per, 2 * F, (const float*)mu,
+      Layer c1 = conv_layer(uel, 2 * n_per, 2 * F, (const float*)mu, (const int*)tu,
                             (const bf16*)w1 + (size_t)g * 9 * 2 * F * F,
                             (const float*)b1 + (size_t)g * F, F, s1);
       c1.skip = stk + (size_t)top * n_per;
@@ -171,7 +175,7 @@ int lmconv_fused_down(const void* stack, const void* mu, const void* md,
       c1.bs = (const float*)bs + (size_t)g * F;
       c1.out_elu = xel;
       if ((e = launch_layer(c1, B, HW, F, st)) != cudaSuccess) return e;
-      Layer c2 = conv_layer(xel, 2 * n_per, 2 * F, (const float*)mu,
+      Layer c2 = conv_layer(xel, 2 * n_per, 2 * F, (const float*)mu, (const int*)tu,
                             (const bf16*)w2 + (size_t)g * 9 * 4 * F * F,
                             (const float*)b2 + (size_t)g * 2 * F, 2 * F, s1);
       c2.og = u[cur];
@@ -184,7 +188,7 @@ int lmconv_fused_down(const void* stack, const void* mu, const void* md,
       --top;
     }
     if (i < 2) {
-      Layer d = conv_layer(ub, n_per, F, (const float*)md,
+      Layer d = conv_layer(ub, n_per, F, (const float*)md, (const int*)td,
                            (const bf16*)dw + (size_t)i * 9 * F * F,
                            (const float*)db + (size_t)i * F, F, sd);
       d.out = u[1 - cur];

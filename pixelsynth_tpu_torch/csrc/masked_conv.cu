@@ -10,9 +10,11 @@
 // than a block's shared memory.  So the kernel tiles over positions: a
 // block owns 128 positions and all Cout, loops over the taps, and takes
 // each tap's shifted rows from device memory (L2-resident) through the
-// cp.async ring of lmconv_layer.cuh, with the products on the tensor
-// cores (wmma, bf16 operands, f32 accumulation).  It is K1's layer
-// without its epilogue: the bias is added and the f32 result stored.
+// ring of lmconv_layer.cuh (a producer warpgroup copies, two consumer
+// warpgroups multiply with wgmma, bf16 operands, f32 accumulation; a tap
+// that is off on the whole tile is skipped).  It is K1's layer without
+// its epilogue: the bias is added and the f32 result stored from the
+// accumulator registers.
 //   * The masks are the raw (B, HW, 9) ones ({0, 1} entries), so the
 //     kernel zero-pads itself: a tap whose source row or column leaves the
 //     image is not read (guard_image), and a tap whose mask is 0 is not
@@ -30,8 +32,9 @@
 // Bound on this card (pop 16, 32x32, Cin = Cout = 160): 2 * 9 * 16384 *
 // 160 * 160 = 7.5 GFLOP dense on bf16 tensor cores (7.6 us at 989
 // TFLOP/s) against 5.2 MB of x, 10.5 MB of output and 0.6 MB of masks
-// (4.9 us at 3.35 TB/s): operations bound it, barely; this simple version
-// (wmma from a two-stage ring) sits well above either (PERF.md).
+// (4.9 us at 3.35 TB/s): operations bound it, barely.  What is K3's own
+// above that: the caller's cast of x to bf16 and the twice as wide f32
+// store (PERF.md).
 
 #include "lmconv_layer.cuh"
 
@@ -110,9 +113,12 @@ masked_conv_f32_kernel(const float* x, const float* mask, const float* w,
 extern "C" {
 
 // bf16 operands, f32 accumulation.  x (B, HW, Cin) bf16; mask (B, HW, 9)
-// f32 with {0, 1} entries, NOT boundary-folded; w (9, Cin, Cout) bf16;
-// bias (Cout) f32; out (B, HW, Cout) f32.
-int masked_conv_bf16(const void* x, const void* mask, const void* w,
+// f32 with {0, 1} entries, NOT boundary-folded; tile_taps (B, HW/128, 9)
+// int32 (or null: every tap is copied); w the packed image of the
+// (9, Cin, Cout) bf16 taps at width F (ops/conv_pack.py); bias (Cout) f32;
+// out (B, HW, Cout) f32.
+int masked_conv_bf16(const void* x, const void* mask, const void* tile_taps,
+                     const void* w,
                      const void* bias, void* out, int B, int H, int W,
                      int Cin, int Cout, int dilation, void* stream) {
   const int HW = H * W;
@@ -124,8 +130,8 @@ int masked_conv_bf16(const void* x, const void* mask, const void* w,
   int sh[9];
   make_shifts(sh, W, dilation);
   Layer L = conv_layer((const bf16*)x, (long long)HW * Cin, Cin,
-                       (const float*)mask, (const bf16*)w, (const float*)bias,
-                       Cout, sh);
+                       (const float*)mask, (const int*)tile_taps,
+                       (const bf16*)w, (const float*)bias, Cout, sh);
   guard_image(L, H, W, dilation);
   L.linear = 1;
   L.out = (float*)out;

@@ -31,8 +31,9 @@ from pixelsynth_tpu_torch.models.layers import (
 from pixelsynth_tpu_torch.ops.masked_conv import (
     locally_masked_conv2d, locally_masked_embed, mask_rows,
 )
+from pixelsynth_tpu_torch.ops.conv_pack import prepare_taps
 from pixelsynth_tpu_torch.ops.masked_conv_kernel import (
-    locally_masked_conv2d_kernel_vjp, raw_mask,
+    kernel_width, locally_masked_conv2d_kernel_vjp, raw_mask,
 )
 
 BACKENDS = ("xla", "pallas")
@@ -65,7 +66,7 @@ class LMConv(FlaxNamed):
         self.mask_weight = (nn.Parameter(torch.zeros(k2, features),
                                          requires_grad=False)
                             if mask_weight else None)
-        self._cast = None    # (weight version, device, the bf16 weight)
+        self._cast = None    # ((weight version, device), the kernel's weight)
 
     def reset(self, gen):
         """weight and mask_weight ~ U(+-sqrt(1/fan_in)) (variance scaling
@@ -90,12 +91,18 @@ class LMConv(FlaxNamed):
                 p.copy_(_t(node[name], p))
 
     def _kernel_weight(self):
-        """The weight as the kernel reads it: cast to bf16 once."""
+        """The weight as the kernel reads it, made once per version of the
+        weight: the bf16 cast, on the card as `PackedTaps` (the kernel's
+        shared-memory image) where the bf16 kernel takes the shape."""
         if self.compute_dtype == "float32":
             return self.weight
         key = (self.weight._version, self.weight.device)
         if self._cast is None or self._cast[0] != key:
-            self._cast = (key, self.weight.detach().to(torch.bfloat16))
+            w = self.weight.detach().to(torch.bfloat16)
+            width = kernel_width(w.shape[1], w.shape[2])
+            if w.is_cuda and w.shape[0] == 9 and width:
+                w = prepare_taps(w, width)
+            self._cast = (key, w)
         return self._cast[1]
 
     def forward(self, x, mask, *, codes=None, filled=None):

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from pixelsynth_tpu_torch.models.layers import pono
+from pixelsynth_tpu_torch.ops.conv_pack import prepare_taps
 from pixelsynth_tpu_torch.ops.gated_resnet_kernel import gated_resnet_kernel
 from pixelsynth_tpu_torch.ops.masked_conv import locally_masked_embed
 from pixelsynth_tpu_torch.ops.masked_conv_kernel import (
@@ -32,15 +33,21 @@ from pixelsynth_tpu_torch.ops.masked_conv_kernel import (
 def cast_conv_weights(params: Dict[str, torch.Tensor],
                       compute_dtype: str) -> Dict[str, torch.Tensor]:
     """A copy of `params` whose kernel operands (the masked-conv taps past
-    the first layer and the skip nins) are already in the compute dtype,
-    so a sampling loop does not cast them at every launch."""
+    the first layer and the skip nins) are already what the kernels read,
+    so a sampling loop does not cast or lay them out at every launch: on
+    the card `PackedTaps` (bf16, the kernels' shared-memory image), on the
+    CPU the bf16 cast the plain versions round to."""
     if compute_dtype != "bfloat16":
         return dict(params)
+    width = params["LMConv_0/bias"].shape[0]
     out = {}
     for name, p in params.items():
         operand = ((name.endswith("/weight") and name != "LMConv_0/weight")
                    or (name.startswith("GatedResnet") and name.endswith("/kernel")))
-        out[name] = p.to(torch.bfloat16) if operand else p
+        if operand and p.is_cuda:
+            out[name] = prepare_taps(p if p.dim() == 3 else p[None], width)
+        else:
+            out[name] = p.to(torch.bfloat16) if operand else p
     return out
 
 

@@ -23,7 +23,7 @@ import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Sequence
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -61,37 +61,40 @@ def source_files(name: str) -> List[str]:
     return [os.path.join(CSRC_DIR, rel) for rel in seen]
 
 
-def _lib_path(name: str) -> str:
-    h = hashlib.sha1()
+def _lib_path(name: str, defines: Sequence[str] = ()) -> str:
+    h = hashlib.sha1(" ".join(defines).encode())
     for path in source_files(name):
         with open(path, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
-def _nvcc_cmd(name: str, out: str, verbose: bool) -> list:
+def _nvcc_cmd(name: str, out: str, verbose: bool, defines: Sequence[str]) -> list:
     cmd = [nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-o", out,
+           "-Xcompiler", "-fPIC", *[f"-D{d}" for d in defines], "-o", out,
            os.path.join(CSRC_DIR, f"{name}.cu")]
     if verbose:
         cmd.insert(1, "-Xptxas=-v")
     return cmd
 
 
-def build(names: Iterable[str], verbose: bool = False) -> Dict[str, str]:
+def build(names: Iterable[str], verbose: bool = False,
+          defines: Sequence[str] = ()) -> Dict[str, str]:
     """Compile every named source not built yet, all nvcc processes
     started together.  Returns {name: compiler output}.  Every process
     is waited for; then one RuntimeError names each source that failed
-    (an error in a shared header fails every source that includes it)."""
+    (an error in a shared header fails every source that includes it).
+    `defines` are preprocessor macros ("NAME" or "NAME=value") of a
+    variant build: a library of its own, beside the plain one."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     for name in names:
-        out = _lib_path(name)
+        out = _lib_path(name, defines)
         if os.path.exists(out) and not verbose:
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
         procs[name] = (subprocess.Popen(
-            _nvcc_cmd(name, tmp, verbose), stdout=subprocess.PIPE,
+            _nvcc_cmd(name, tmp, verbose, defines), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True), tmp, out)
     logs, failed = {}, []
     for name, (proc, tmp, out) in procs.items():
@@ -115,6 +118,14 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(_lib_path(name))
             _libs[name] = lib
         return lib
+
+
+def load_variant(name: str, defines: Sequence[str]) -> ctypes.CDLL:
+    """csrc/<name>.cu built with the macros `defines`, loaded beside the
+    plain library (the profiling tools time a kernel with a part compiled
+    out).  To route a wrapper through it, put it into `_libs[name]`."""
+    build([name], defines=defines)
+    return ctypes.CDLL(_lib_path(name, defines))
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from pixelsynth_tpu_torch.models.layers import pono
 from pixelsynth_tpu_torch.ops import _cuda
+from pixelsynth_tpu_torch.ops.conv_pack import TILE, pack_taps, tile_tap_table
 from pixelsynth_tpu_torch.ops.masked_conv import locally_masked_embed
 
 # launches of each CUDA kernel, counted by its wrapper
@@ -42,6 +43,10 @@ def shifts(k: int, dilation: int, W: int):
             for i in range(k) for j in range(k)]
 
 
+# the conv weights the CUDA kernel reads as packed images
+CONV_WEIGHTS = ("uw1", "uw2", "udw", "dw1", "dws", "dw2", "ddw")
+
+
 def pack_lmconv_params(params: Dict[str, torch.Tensor], *, nr_resnet: int = 2,
                        compute_dtype: str = "bfloat16",
                        device=None) -> Dict[str, torch.Tensor]:
@@ -51,7 +56,9 @@ def pack_lmconv_params(params: Dict[str, torch.Tensor], *, nr_resnet: int = 2,
     Unlike the TPU packing, the concat_elu input halves and the (a, gate)
     output halves stay together: the CUDA kernel reads the halves as one
     K = 2F (and N = 2F) dimension.  Conv weights are cast to the compute
-    dtype; biases, the embedding table and the nin stay f32."""
+    dtype; biases, the embedding table and the nin stay f32.  In bfloat16
+    every conv weight also gets its packed image for the CUDA kernel under
+    "<name>_img" (ops/conv_pack.py), made here, once per model."""
     cdt = _cdt(compute_dtype)
     nr = nr_resnet
     n_up, n_dn = 3 * nr, 3 * nr + 2
@@ -84,6 +91,11 @@ def pack_lmconv_params(params: Dict[str, torch.Tensor], *, nr_resnet: int = 2,
     packed["embed_b"] = p("LMConv_0/bias")
     packed["nin_w"] = p("Nin_0/Dense_0/kernel")
     packed["nin_b"] = p("Nin_0/Dense_0/bias")
+    if cdt == torch.bfloat16:
+        Fc = packed["uw1"].shape[-1]
+        for name in CONV_WEIGHTS:
+            w = packed[name]
+            packed[f"{name}_img"] = pack_taps(w if w.dim() == 4 else w[:, None], Fc)
     return packed
 
 
@@ -231,9 +243,9 @@ _I = ctypes.c_int
 def _lib():
     lib = _cuda.load("lmconv_fused")
     if not getattr(lib, "_typed", False):
-        lib.lmconv_fused_up.argtypes = [_P] * 14 + [_I] * 6 + [_P]
+        lib.lmconv_fused_up.argtypes = [_P] * 16 + [_I] * 6 + [_P]
         lib.lmconv_fused_up.restype = _I
-        lib.lmconv_fused_down.argtypes = [_P] * 16 + [_I] * 6 + [_P]
+        lib.lmconv_fused_down.argtypes = [_P] * 18 + [_I] * 6 + [_P]
         lib.lmconv_fused_down.restype = _I
         lib._typed = True
     return lib
@@ -261,12 +273,32 @@ def _check_common(x, mu, md, packed, *, H, W, nr, dilation, compute_dtype):
             ("dw2", bf, (n_dn, 9, 2 * Fc, 2 * Fc)), ("db2", f32, (n_dn, 2 * Fc)),
             ("ddw", bf, (2, 9, Fc, Fc)), ("ddb", f32, (2, Fc))):
         _cuda.require(packed[name], name, dtype=dt, shape=shape, device=dev)
+        if name in CONV_WEIGHTS:
+            _cuda.require(packed[f"{name}_img"], f"{name}_img", dtype=bf,
+                          shape=(shape[0], packed[name][0].numel()), device=dev)
     return B, HW, Fc
 
 
-def up(u0, mu, md, packed, *, H, W, nr, dilation, compute_dtype="bfloat16"):
+def tile_tables(mu, md):
+    """The (tile, tap) tables of the folded masks mu, md, for `up` / `down`:
+    a sampling loop makes them once, beside the masks."""
+    return tile_tap_table(mu), tile_tap_table(md)
+
+
+def _check_tables(tables, mu, md):
+    B, HW, _ = mu.shape
+    tu, td = tables if tables is not None else tile_tables(mu, md)
+    for t, name in ((tu, "tables[0]"), (td, "tables[1]")):
+        _cuda.require(t, name, dtype=torch.int32, shape=(B, HW // TILE, 9),
+                      device=mu.device)
+    return tu, td
+
+
+def up(u0, mu, md, packed, *, H, W, nr, dilation, compute_dtype="bfloat16",
+       tables=None):
     """K1a.  u0 (B, HW, F) f32, mu/md (B, HW, 9) folded masks -> skip stack
-    (B, 3nr+3, HW, F) bf16."""
+    (B, 3nr+3, HW, F) bf16.  tables: `tile_tables(mu, md)`, made at this
+    call when not given."""
     if not u0.is_cuda:
         return up_plain(u0, mu, md, packed, W=W, nr=nr, dilation=dilation,
                         compute_dtype=compute_dtype)
@@ -275,6 +307,7 @@ def up(u0, mu, md, packed, *, H, W, nr, dilation, compute_dtype="bfloat16"):
     _cuda.require(u0, "u0", dtype=torch.float32, shape=(B, HW, Fc))
     if packed["uw1"].requires_grad or u0.requires_grad:
         raise ValueError("K1 serves inference only: no gradient")
+    tu, td = _check_tables(tables, mu, md)
     stack = torch.empty((B, 3 * nr + 3, HW, Fc), dtype=torch.bfloat16,
                         device=u0.device)
     ua, ub = torch.empty_like(u0), torch.empty_like(u0)
@@ -282,8 +315,9 @@ def up(u0, mu, md, packed, *, H, W, nr, dilation, compute_dtype="bfloat16"):
               for _ in range(2))
     P = _cuda.ptr
     rc = _lib().lmconv_fused_up(
-        P(u0), P(mu), P(md), P(packed["uw1"]), P(packed["ub1"]),
-        P(packed["uw2"]), P(packed["ub2"]), P(packed["udw"]), P(packed["udb"]),
+        P(u0), P(mu), P(md), P(tu), P(td), P(packed["uw1_img"]),
+        P(packed["ub1"]), P(packed["uw2_img"]), P(packed["ub2"]),
+        P(packed["udw_img"]), P(packed["udb"]),
         P(stack), P(ua), P(ub), P(ue), P(xe), B, H, W, Fc, nr, dilation,
         _cuda.stream_of(u0))
     _cuda.check(rc, "lmconv_fused_up")
@@ -292,8 +326,9 @@ def up(u0, mu, md, packed, *, H, W, nr, dilation, compute_dtype="bfloat16"):
 
 
 def down(stack, mu, md, packed, *, H, W, nr, dilation,
-         compute_dtype="bfloat16"):
-    """K1b.  skip stack (B, 3nr+3, HW, F) bf16 -> (B, HW, F) f32."""
+         compute_dtype="bfloat16", tables=None):
+    """K1b.  skip stack (B, 3nr+3, HW, F) bf16 -> (B, HW, F) f32.  tables
+    as for `up`."""
     if not stack.is_cuda:
         return down_plain(stack, mu, md, packed, W=W, nr=nr,
                           dilation=dilation, compute_dtype=compute_dtype)
@@ -301,6 +336,7 @@ def down(stack, mu, md, packed, *, H, W, nr, dilation,
                               dilation=dilation, compute_dtype=compute_dtype)
     _cuda.require(stack, "stack", dtype=torch.bfloat16,
                   shape=(B, 3 * nr + 3, HW, Fc))
+    tu, td = _check_tables(tables, mu, md)
     out = torch.empty((B, HW, Fc), dtype=torch.float32, device=stack.device)
     u_b = torch.empty_like(out)
     ue, xe = (torch.empty((B, HW, 2 * Fc), dtype=torch.bfloat16, device=out.device)
@@ -308,9 +344,10 @@ def down(stack, mu, md, packed, *, H, W, nr, dilation,
     ubf = torch.empty((B, HW, Fc), dtype=torch.bfloat16, device=out.device)
     P = _cuda.ptr
     rc = _lib().lmconv_fused_down(
-        P(stack), P(mu), P(md), P(packed["dw1"]), P(packed["db1"]),
-        P(packed["dws"]), P(packed["dbs"]), P(packed["dw2"]), P(packed["db2"]),
-        P(packed["ddw"]), P(packed["ddb"]), P(out), P(u_b), P(ue), P(xe), P(ubf),
+        P(stack), P(mu), P(md), P(tu), P(td), P(packed["dw1_img"]),
+        P(packed["db1"]), P(packed["dws_img"]), P(packed["dbs"]),
+        P(packed["dw2_img"]), P(packed["db2"]), P(packed["ddw_img"]),
+        P(packed["ddb"]), P(out), P(u_b), P(ue), P(xe), P(ubf),
         B, H, W, Fc, nr, dilation, _cuda.stream_of(stack))
     _cuda.check(rc, "lmconv_fused_down")
     LAUNCHES["lmconv_down"] += 1
@@ -332,13 +369,15 @@ def embed_input(packed, codes, filled, mask_init, *, num_classes):
 
 def pixelcnn_forward_fused(packed, codes, filled, mask_init, mu, md, *, H, W,
                            nr_resnet=2, max_dilation=2, num_classes=512,
-                           compute_dtype="bfloat16", return_features=False):
+                           compute_dtype="bfloat16", return_features=False,
+                           tables=None):
     """codes/filled (B, H, W); mask_init (B, k2, HW); mu/md folded
-    (B, HW, k2).  Returns (B, H, W, num_classes) logits, or the pre-nin
-    features (B, HW, F) f32 when return_features."""
+    (B, HW, k2); tables `tile_tables(mu, md)` or None.  Returns
+    (B, H, W, num_classes) logits, or the pre-nin features (B, HW, F) f32
+    when return_features."""
     B = codes.shape[0]
     kw = dict(H=H, W=W, nr=nr_resnet, dilation=max_dilation,
-              compute_dtype=compute_dtype)
+              compute_dtype=compute_dtype, tables=tables)
     u0 = embed_input(packed, codes, filled, mask_init, num_classes=num_classes)
     u = down(up(u0, mu, md, packed, **kw), mu, md, packed, **kw)
     if return_features:
@@ -360,8 +399,11 @@ def make_fused_logits_fn(packed: Dict, masks: torch.Tensor, *,
     m_init = masks[:, 0]
     mu = fold_boundary_masks(masks[:, 1], side, side, k, 1)
     md = fold_boundary_masks(masks[:, 2], side, side, k, max_dilation)
+    # the kernels' (tile, tap) tables, made once here beside the masks
+    tables = tile_tables(mu, md) if HW % TILE == 0 else None
     kw = dict(H=side, W=side, nr_resnet=nr_resnet, max_dilation=max_dilation,
-              num_classes=num_classes, compute_dtype=compute_dtype)
+              num_classes=num_classes, compute_dtype=compute_dtype,
+              tables=tables)
 
     def fn(codes, filled):
         return pixelcnn_forward_fused(packed, codes, filled, m_init, mu, md, **kw)

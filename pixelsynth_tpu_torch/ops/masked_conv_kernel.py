@@ -17,8 +17,12 @@ PyTorch ops -- the JAX package has no backward kernel either.
 
 The kernel reads the mask as (B, HW, 9) rows and, in bf16, requires {0, 1}
 entries (a tap with mask 0 is not read at all).  `prepare_mask` makes that
-layout and checks the entries once; a sampling loop prepares its masks
-outside the loop and hands the `PreparedMask` to every call.
+layout, checks the entries once and builds the table of (128-position
+tile, tap) pairs that have any position on (the bf16 kernels skip the
+others whole); a sampling loop prepares its masks outside the loop and
+hands the `PreparedMask` to every call.  The bf16 kernels read the weights
+as the packed image of ops/conv_pack.py: a caller that holds its weights
+hands in `PackedTaps` (made once); plain weights are packed at the call.
 """
 
 from __future__ import annotations
@@ -29,6 +33,9 @@ from typing import NamedTuple, Optional, Union
 import torch
 
 from pixelsynth_tpu_torch.ops import _cuda
+from pixelsynth_tpu_torch.ops.conv_pack import (
+    TILE, PackedTaps, TapsArg, prepare_taps, raw_taps, tile_tap_table,
+)
 from pixelsynth_tpu_torch.ops.masked_conv import mask_rows, shifted_taps, tap_offsets
 
 # launches of the CUDA kernel, and calls that took the plain version (CPU)
@@ -41,6 +48,9 @@ class PreparedMask(NamedTuple):
 
     rows: torch.Tensor   # (B, HW, k*k) f32, contiguous
     raw: torch.Tensor    # (B, k*k, HW)
+    # (B, HW // 128, k*k) int32, 1 where any position of the tile has the
+    # tap on; None when HW is no multiple of 128 (no bf16 kernel takes it)
+    taps: Optional[torch.Tensor] = None
 
 
 MaskArg = Union[torch.Tensor, PreparedMask]
@@ -55,7 +65,8 @@ def prepare_mask(mask: MaskArg) -> PreparedMask:
     rows = mask.float().transpose(1, 2).contiguous()
     if rows.is_cuda and not bool(((rows == 0) | (rows == 1)).all()):
         raise ValueError("mask entries must be 0 or 1 for the CUDA kernels")
-    return PreparedMask(rows, mask)
+    taps = tile_tap_table(rows) if rows.shape[1] % TILE == 0 else None
+    return PreparedMask(rows, mask, taps)
 
 
 def raw_mask(mask: MaskArg) -> torch.Tensor:
@@ -87,6 +98,7 @@ def locally_masked_conv2d_plain(x, mask, weight, bias=None, *, dilation=1,
     Returns (B, H, W, Cout) f32."""
     B, H, W, _ = x.shape
     cdt = _cdt(compute_dtype)
+    weight = raw_taps(weight)
     if bias is None:
         bias = torch.zeros(weight.shape[-1], device=x.device)
     m4 = mask_rows(raw_mask(mask), B, H, W).to(cdt).float()
@@ -101,9 +113,9 @@ _I = ctypes.c_int
 def _lib():
     lib = _cuda.load("masked_conv")
     if not getattr(lib, "_typed", False):
-        for fn in (lib.masked_conv_bf16, lib.masked_conv_f32):
-            fn.argtypes = [_P] * 5 + [_I] * 6 + [_P]
-            fn.restype = _I
+        lib.masked_conv_bf16.argtypes = [_P] * 6 + [_I] * 6 + [_P]
+        lib.masked_conv_f32.argtypes = [_P] * 5 + [_I] * 6 + [_P]
+        lib.masked_conv_bf16.restype = lib.masked_conv_f32.restype = _I
         lib._typed = True
     return lib
 
@@ -121,12 +133,12 @@ def kernel_width(cin: int, cout: int) -> int:
     return 0
 
 
-def locally_masked_conv2d_kernel(x, mask: MaskArg, weight, bias=None, *,
+def locally_masked_conv2d_kernel(x, mask: MaskArg, weight: TapsArg, bias=None, *,
                                  dilation: int = 1,
                                  compute_dtype: str = "bfloat16"):
     """K3.  x (B, H, W, Cin) f32; mask (B, 9, H*W) or a PreparedMask;
-    weight (9, Cin, Cout) f32 (or already bf16 for compute_dtype
-    bfloat16); bias (Cout) or None.  Returns (B, H, W, Cout) f32.  Not
+    weight (9, Cin, Cout), or its PackedTaps for compute_dtype bfloat16;
+    bias (Cout) or None.  Returns (B, H, W, Cout) f32.  Not
     differentiable: see `locally_masked_conv2d_kernel_vjp`."""
     cdt = _cdt(compute_dtype)
     if not x.is_cuda:
@@ -134,15 +146,19 @@ def locally_masked_conv2d_kernel(x, mask: MaskArg, weight, bias=None, *,
         return locally_masked_conv2d_plain(x, mask, weight, bias,
                                            dilation=dilation,
                                            compute_dtype=compute_dtype)
-    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+    raw = raw_taps(weight)
+    if torch.is_grad_enabled() and (x.requires_grad or raw.requires_grad):
         raise ValueError("locally_masked_conv2d_kernel has no gradient: use "
                          "locally_masked_conv2d_kernel_vjp")
     B, H, W, Cin = x.shape
-    K2, _, Cout = weight.shape
+    K2, _, Cout = raw.shape
     HW = H * W
     dev = x.device
     if K2 != 9:
         raise ValueError(f"K3 takes 3x3 taps, got k*k = {K2}")
+    if raw.shape[1] != Cin or raw.device != dev:
+        raise ValueError(f"weight: shape {tuple(raw.shape)} on {raw.device}, "
+                         f"expected (9, {Cin}, {Cout}) on {dev}")
     pm = prepare_mask(mask)
     _cuda.require(pm.rows, "mask", dtype=torch.float32, shape=(B, HW, 9),
                   device=dev)
@@ -150,26 +166,31 @@ def locally_masked_conv2d_kernel(x, mask: MaskArg, weight, bias=None, *,
         bias = torch.zeros(Cout, dtype=torch.float32, device=dev)
     _cuda.require(bias, "bias", dtype=torch.float32, shape=(Cout,), device=dev)
     lib = _lib()
+    P = _cuda.ptr
     if cdt == torch.bfloat16:
         if not kernel_width(Cin, Cout) or HW % 128:
             raise ValueError(
                 f"the bf16 K3 kernel takes H*W % 128 == 0 and (Cin, Cout) each "
                 f"F or 2F for one F % 16 == 0, F <= 80; got HW={HW}, "
                 f"Cin={Cin}, Cout={Cout}")
+        wk = prepare_taps(weight, kernel_width(Cin, Cout)).image
+        _cuda.require(pm.taps, "mask table", dtype=torch.int32,
+                      shape=(B, HW // TILE, 9), device=dev)
+        args = (P(pm.rows), P(pm.taps), P(wk))
         fn = lib.masked_conv_bf16
     else:
         if HW % 8 or Cout > 512 or Cin > 1536:
             raise ValueError(
                 f"the f32 K3 kernel takes H*W % 8 == 0, Cin <= 1536 and "
                 f"Cout <= 512; got HW={HW}, Cin={Cin}, Cout={Cout}")
+        wk = raw.to(cdt).contiguous()
+        args = (P(pm.rows), P(wk))
         fn = lib.masked_conv_f32
     xk = x.to(cdt).contiguous()
-    wk = weight.to(cdt).contiguous()
     _cuda.require(xk, "x", dtype=cdt, shape=(B, H, W, Cin))
-    _cuda.require(wk, "weight", dtype=cdt, shape=(9, Cin, Cout), device=dev)
+    _cuda.require(wk, "weight", dtype=cdt, device=dev)
     out = torch.empty((B, H, W, Cout), dtype=torch.float32, device=dev)
-    P = _cuda.ptr
-    rc = fn(P(xk), P(pm.rows), P(wk), P(bias), P(out), B, H, W, Cin, Cout,
+    rc = fn(P(xk), *args, P(bias), P(out), B, H, W, Cin, Cout,
             int(dilation), _cuda.stream_of(x))
     _cuda.check(rc, "masked_conv")
     LAUNCHES["masked_conv"] += 1
@@ -204,27 +225,29 @@ def masked_conv_backward(g, x, mask, weight, dilation: int):
 
 class _MaskedConvFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, weight, bias, mask, dilation, compute_dtype):
+    def forward(ctx, x, weight, bias, mask, dilation, compute_dtype, packed):
         ctx.save_for_backward(x, weight)
         ctx.mask, ctx.dilation = mask, dilation
         with torch.no_grad():
             return locally_masked_conv2d_kernel(
-                x, mask, weight, bias, dilation=dilation,
-                compute_dtype=compute_dtype)
+                x, mask, weight if packed is None else packed, bias,
+                dilation=dilation, compute_dtype=compute_dtype)
 
     @staticmethod
     def backward(ctx, g):
         x, weight = ctx.saved_tensors
         dx, dW, db = masked_conv_backward(g, x, ctx.mask, weight, ctx.dilation)
-        return dx.to(x.dtype), dW.to(weight.dtype), db, None, None, None
+        return dx.to(x.dtype), dW.to(weight.dtype), db, None, None, None, None
 
 
-def locally_masked_conv2d_kernel_vjp(x, mask: MaskArg, weight,
+def locally_masked_conv2d_kernel_vjp(x, mask: MaskArg, weight: TapsArg,
                                      bias: Optional[torch.Tensor],
                                      dilation: int = 1,
                                      compute_dtype: str = "bfloat16"):
-    """Differentiable K3: the kernel forward with the plain backward."""
+    """Differentiable K3: the kernel forward with the plain backward (which
+    reads the plain weights of a PackedTaps)."""
+    raw = raw_taps(weight)
     if bias is None:
-        bias = torch.zeros(weight.shape[-1], dtype=torch.float32,
-                           device=x.device)
-    return _MaskedConvFn.apply(x, weight, bias, mask, dilation, compute_dtype)
+        bias = torch.zeros(raw.shape[-1], dtype=torch.float32, device=x.device)
+    packed = weight if isinstance(weight, PackedTaps) else None
+    return _MaskedConvFn.apply(x, raw, bias, mask, dilation, compute_dtype, packed)

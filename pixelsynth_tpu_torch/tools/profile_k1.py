@@ -1,4 +1,4 @@
-"""K1's time by part, on the card.
+"""K1's and K4's time by part, on the card.
 
   python3 -m pixelsynth_tpu_torch.tools.profile_k1
 
@@ -6,43 +6,37 @@ At chip_smoke.py's K1 shapes (16 candidates, 32x32 codes, F=80, bf16):
   1. the device time of every launch of one up + down pass
      (torch.profiler), averaged by layer kind, beside the pass's time;
   2. the up / down pass times (CUDA events, chip_smoke.time_ms) of the
-     layer kernel built with one part compiled out: the epilogue, the
-     tensor-core products, the ring's copies.  Those variants compute
-     wrong values; only their times are read.
-Needs a CUDA device and nvcc; prints the card's name and power limit.
+     layer body (csrc/lmconv_layer.cuh) built with one part compiled out
+     by a macro: the epilogue (LMK_NO_EPILOGUE), the tensor-core products
+     (LMK_NO_MMA), the producer's copies of the operand rows
+     (LMK_NO_COPY; the weights' bulk copy stays);
+  3. K4 (one gated resnet, with and without the skip) with the same parts
+     compiled out and, its own, the two grid barriers (LMK_NO_GRID_SYNC)
+     and phase 0 (LMK_NO_PHASE0): the kernel's device time from the
+     profiler, beside the time of a call.
+The variants compute wrong values; only their times are read.  Needs a
+CUDA device and nvcc; prints the card's name and power limit.
 """
 
 from __future__ import annotations
 
-import ctypes
 import json
 import os
-import shutil
-import subprocess
 import sys
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-# (first line of the part, text that ends it, macro that compiles it out)
-PARTS = (
-    ("  // epilogue: one warp per position", "    }\n  }\n", "NO_EPILOGUE"),
-    ("    mma_step<F, NOUT, F>(acc, ring_a[i & 1]", ";\n", "NO_MMA"),
-    ("      copy_step<F, NOUT>(ring_a[(i + 1) & 1]", ";\n", "NO_COPY"),
-)
-VARIANTS = {"whole": [], "no epilogue": ["NO_EPILOGUE"], "no products": ["NO_MMA"],
-            "no copies": ["NO_COPY"], "no products, no copies": ["NO_MMA", "NO_COPY"]}
-
-
-def _guarded_source(path: str) -> str:
-    text = open(path).read()
-    for start, end, macro in PARTS:
-        i = text.index(start)
-        j = text.index(end, i) + len(end)
-        text = f"{text[:i]}#ifndef {macro}\n{text[i:j]}#endif\n{text[j:]}"
-    return text
+# variant -> the macros that compile its parts out
+BODY_VARIANTS = {"whole": [], "no epilogue": ["LMK_NO_EPILOGUE"],
+                 "no products": ["LMK_NO_MMA"], "no copies": ["LMK_NO_COPY"],
+                 "no products, no copies": ["LMK_NO_MMA", "LMK_NO_COPY"]}
+K4_VARIANTS = dict(BODY_VARIANTS, **{
+    "no grid barriers": ["LMK_NO_GRID_SYNC"], "no phase 0": ["LMK_NO_PHASE0"],
+    "no grid barriers, no phase 0": ["LMK_NO_GRID_SYNC", "LMK_NO_PHASE0"]})
 
 
 def _launch_kinds(nr: int):
@@ -52,6 +46,21 @@ def _launch_kinds(nr: int):
     down = (["init"] + gated * nr + ["dilated"] + gated * (nr + 1) + ["dilated"]
             + gated * (nr + 1))
     return up + down
+
+
+def _device_us(fn, kernel: str, reps: int = 10) -> float:
+    """Mean device time (torch.profiler) of the launches of `kernel` in
+    `reps` calls of fn: what the card takes, whatever the host does."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if kernel in e.key]
+    return sum(e.device_time_total for e in hits) / max(1, sum(e.count for e in hits))
 
 
 def main():
@@ -65,7 +74,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     packed, u0, mu, md, *_ = cs._k1_inputs(16, 32, 80)
-    kw = dict(H=32, W=32, nr=2, dilation=2, compute_dtype="bfloat16")
+    kw = dict(H=32, W=32, nr=2, dilation=2, compute_dtype="bfloat16",
+              tables=K1.tile_tables(mu, md))
 
     def one_pass():
         return K1.down(K1.up(u0, mu, md, packed, **kw), mu, md, packed, **kw)
@@ -96,31 +106,44 @@ def main():
     print(f"[trace] {len(events)} launches busy {sum(e['dur'] for e in events):.1f} us; "
           f"the pass takes {cs.time_ms(one_pass) * 1e3:.1f} us (CUDA events)")
 
-    # the parts live in the layer body's header: a guarded copy of it goes
-    # beside a copy of the source that includes it
-    parts_dir = os.path.join(_cuda.BUILD_DIR, "k1_parts")
-    os.makedirs(parts_dir, exist_ok=True)
-    guarded = os.path.join(parts_dir, "lmconv_fused.cu")
-    shutil.copyfile(os.path.join(_cuda.CSRC_DIR, "lmconv_fused.cu"), guarded)
-    with open(os.path.join(parts_dir, "lmconv_layer.cuh"), "w") as f:
-        f.write(_guarded_source(os.path.join(_cuda.CSRC_DIR, "lmconv_layer.cuh")))
-    procs = {}
-    for name, macros in VARIANTS.items():
-        out = os.path.join(_cuda.BUILD_DIR, f"lmconv_fused_{'_'.join(macros) or 'whole'}.so")
-        cmd = [_cuda.nvcc_path(), *_cuda.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-               "-Xcompiler", "-fPIC", "-w", *[f"-D{m}" for m in macros], "-o", out,
-               guarded]
-        procs[name] = (subprocess.Popen(cmd), out)
-    for name, (proc, _) in procs.items():
-        if proc.wait() != 0:
-            raise RuntimeError(f"nvcc failed for the {name!r} variant")
+    # every variant is a library of its own, all built together first
+    from pixelsynth_tpu_torch.ops import gated_resnet_kernel as K4
+
+    jobs = [(source, macros)
+            for source, variants in (("lmconv_fused", BODY_VARIANTS),
+                                     ("gated_resnet", K4_VARIANTS))
+            for macros in variants.values()]
+    with ThreadPoolExecutor(len(jobs)) as pool:   # each thread waits on its nvcc
+        list(pool.map(lambda job: _cuda.build([job[0]], defines=job[1]), jobs))
     stack = K1.up(u0, mu, md, packed, **kw)
-    for name, (_, lib) in procs.items():
-        _cuda._libs["lmconv_fused"] = ctypes.CDLL(lib)
+    plain_lib = _cuda.load("lmconv_fused")
+    for name, macros in BODY_VARIANTS.items():
+        _cuda._libs["lmconv_fused"] = _cuda.load_variant("lmconv_fused", macros)
+        K1._lib()
         up = cs.time_ms(lambda: K1.up(u0, mu, md, packed, **kw))
         down = cs.time_ms(lambda: K1.down(stack, mu, md, packed, **kw))
-        print(f"[parts] {name:24s} up {up:.3f} ms  down {down:.3f} ms", flush=True)
-    _cuda._libs.pop("lmconv_fused")
+        print(f"[K1 parts] {name:30s} up {up:.3f} ms  down {down:.3f} ms", flush=True)
+    _cuda._libs["lmconv_fused"] = plain_lib
+
+    gen = torch.Generator().manual_seed(4)
+    _, pm, og, a, (w1, b1, ws, bs, w2, b2) = cs._k4_case(16, 32, 80, "order", gen)
+    from pixelsynth_tpu_torch.ops.conv_pack import prepare_taps
+
+    w1, ws, w2 = prepare_taps(w1, 80), prepare_taps(ws[None], 80), prepare_taps(w2, 80)
+    plain_lib = _cuda.load("gated_resnet")
+    for name, macros in K4_VARIANTS.items():
+        _cuda._libs["gated_resnet"] = _cuda.load_variant("gated_resnet", macros)
+        K4._lib()
+        # a K4 call is one launch: the host's work per call can exceed the
+        # kernel's time, so the device time is read from the profiler
+        no = _device_us(lambda: K4.gated_resnet_kernel(og, None, pm, w1, b1, None, None,
+                                                       w2, b2), "gated_resnet_kernel")
+        sk = _device_us(lambda: K4.gated_resnet_kernel(og, a, pm, w1, b1, ws, bs, w2, b2),
+                        "gated_resnet_kernel")
+        call = cs.time_ms(lambda: K4.gated_resnet_kernel(og, a, pm, w1, b1, ws, bs, w2, b2))
+        print(f"[K4 parts] {name:30s} device us: no skip {no:.1f}  skip {sk:.1f}; "
+              f"a call with the skip {call * 1e3:.1f} us", flush=True)
+    _cuda._libs["gated_resnet"] = plain_lib
     print(cs.card_line())
 
 

@@ -37,3 +37,17 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
     with pytest.raises(ValueError, match="CUDA"):
         _cuda.require(torch.zeros(2), "x", dtype=torch.float32)
+
+
+def test_variant_build_is_a_library_of_its_own(tmp_path, monkeypatch):
+    """Macros of a variant build (a part compiled out, for profiling) go
+    into the library's name and into nvcc's command."""
+    (tmp_path / "a.cu").write_text("int a;\n")
+    monkeypatch.setattr(_cuda, "CSRC_DIR", str(tmp_path))
+    plain = _cuda._lib_path("a")
+    assert _cuda._lib_path("a", ()) == plain
+    variant = _cuda._lib_path("a", ["LMK_NO_MMA"])
+    assert variant != plain and variant != _cuda._lib_path("a", ["LMK_NO_COPY"])
+    monkeypatch.setattr(_cuda, "nvcc_path", lambda: "nvcc")
+    cmd = _cuda._nvcc_cmd("a", "out.so", False, ["LMK_NO_MMA", "N=2"])
+    assert "-DLMK_NO_MMA" in cmd and "-DN=2" in cmd

@@ -56,3 +56,54 @@ def test_k4_plain_bf16_close_to_f32():
     bf = K4.gated_resnet_plain(*args, compute_dtype="bfloat16")
     assert float((f32 - bf).abs().max()) < 0.1
     assert float((f32 - bf).abs().mean()) < 5e-3
+
+
+@pytest.mark.parametrize("width", [16, 80])
+@pytest.mark.parametrize("shape", ["conv1", "conv2", "skip", "dilated", "stacked"])
+def test_packed_weight_image_unpacks_bit_for_bit(width, shape):
+    """The shared-memory image the kernels copy in one piece per (tap, K
+    slice): a permutation of the (taps, K, N) weights, element (k, n) of
+    step (t, kc) where the `wgmma` descriptor looks for it."""
+    from pixelsynth_tpu_torch.ops.conv_pack import pack_taps, unpack_taps
+
+    Fw = width
+    dims = {"conv1": (9, 2 * Fw, Fw), "conv2": (9, 2 * Fw, 2 * Fw),
+            "skip": (1, 2 * Fw, Fw), "dilated": (9, Fw, Fw),
+            "stacked": (3, 9, 2 * Fw, Fw)}[shape]
+    rng = np.random.default_rng(width)
+    w = torch.as_tensor(rng.standard_normal(dims).astype(np.float32)).to(torch.bfloat16)
+    image = pack_taps(w, Fw)
+    assert image.dtype == torch.bfloat16 and image.is_contiguous()
+    assert image.shape == (*dims[:-3], dims[-3] * dims[-2] * dims[-1])
+    T, K, N = dims[-3:]
+    back = unpack_taps(image, T, K, N, Fw)
+    assert torch.equal(back.view(torch.int16), w.view(torch.int16))
+    # the documented place of single elements
+    flat, w3 = image.reshape(-1, T * K * N)[-1], w.reshape(-1, T, K, N)[-1]
+    for t, k, n in ((0, 0, 0), (T - 1, K - 1, N - 1), (T // 2, Fw + 3 if K > Fw else 5, 9),
+                    (0, 8, 7), (T - 1, 7, 8)):
+        kc, kk = divmod(k, Fw)
+        at = (((t * (K // Fw) + kc) * (Fw // 8) + kk // 8) * N * 8
+              + (n // 8) * 64 + (n % 8) * 8 + kk % 8)
+        assert flat[at] == w3[t, k, n], (t, k, n)
+
+
+def test_packed_taps_carry_the_plain_weights():
+    """A wrapper given PackedTaps gives what it gives for the plain weights
+    (on the CPU: through the plain version, which reads `.raw`)."""
+    from pixelsynth_tpu_torch.ops.conv_pack import PackedTaps, prepare_taps, raw_taps
+
+    t = {k: torch.as_tensor(v) for k, v in _inputs(2).items()}
+    packed = {k: prepare_taps(t[k] if t[k].dim() == 3 else t[k][None], F)
+              for k in ("w1", "ws", "w2")}
+    assert all(isinstance(p, PackedTaps) and p.image.dtype == torch.bfloat16
+               for p in packed.values())
+    assert prepare_taps(packed["w1"], F) is packed["w1"]      # made once
+    assert raw_taps(packed["w2"]) is t["w2"]
+    with pytest.raises(ValueError):
+        prepare_taps(packed["w1"], 2 * F)
+    want = K4.gated_resnet_kernel(t["og"], t["a"], t["mask"], t["w1"], t["b1"],
+                                  t["ws"], t["bs"], t["w2"], t["b2"])
+    got = K4.gated_resnet_kernel(t["og"], t["a"], t["mask"], packed["w1"], t["b1"],
+                                 packed["ws"], t["bs"], packed["w2"], t["b2"])
+    assert torch.equal(got, want)

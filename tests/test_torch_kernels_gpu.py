@@ -45,20 +45,59 @@ def test_k3_matches_plain_on_card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,side", [(4, 16), (16, 32), (5, 64)])
+@pytest.mark.parametrize("B,side", [(4, 16), (16, 32), (17, 32), (5, 64)])
 def test_k4_matches_plain_on_card(B, side):
-    """K4 with and without the skip: 2, 8 and 32 blocks an image; 5 images
-    of 64x64 take two rounds inside the launch."""
+    """K4 with and without the skip: 2, 8 and 32 blocks an image; 17 images
+    of 32x32 and 5 of 64x64 take two rounds inside the launch.  At 32x32
+    and 64x64 also on masks with every tap on and with whole tiles off (the
+    two edges of the (tile, tap) skip)."""
     _need_card()
     import chip_smoke
 
-    chip_smoke.phase_k4({}, B=B, side=side, Fc=80)
+    if side == 16:      # 256 positions: the whole-tile case would blank the image
+        import torch
+
+        gen = torch.Generator().manual_seed(4)
+        _, pm, og, a, (w1, b1, ws, bs, w2, b2) = chip_smoke._k4_case(B, side, 80,
+                                                                     "order", gen)
+        chip_smoke._k4_check("no skip", (og, None, pm, w1, b1, None, None, w2, b2))
+        chip_smoke._k4_check("skip", (og, a, pm, w1, b1, ws, bs, w2, b2))
+    else:
+        chip_smoke.phase_k4({}, B=B, side=side, Fc=80, others=())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [16, 48])
+def test_k4_other_widths_on_card(width):
+    """The narrow widths the layer body is also built for."""
+    _need_card()
+    import chip_smoke
+
+    chip_smoke.phase_k4({}, B=4, side=32, Fc=width, others=())
 
 
 @pytest.mark.gpu
 def test_k5_is_the_stable_sort_on_card():
-    """K5 at (1, 2^19) and (2, 2^17), exact against torch.sort(stable=True)."""
+    """K5 at (1, 2^19), (2, 2^17) and on the three hard rows of 2^14 (all
+    keys equal, negative keys with both int32 extremes, descending keys):
+    exact against torch.sort(stable=True) and both plain versions."""
     _need_card()
     import chip_smoke
 
     chip_smoke.phase_k5({})
+
+
+@pytest.mark.gpu
+def test_k5_many_rows_on_card():
+    """More tiles than the card keeps resident (16 rows of 2^19: 2048
+    blocks), so the look-back waits on tiles taken earlier by ticket."""
+    _need_card()
+    import torch
+    from pixelsynth_tpu_torch.ops import sort_kernel as K5
+
+    gen = torch.Generator().manual_seed(9)
+    keys = torch.randint(-2 ** 31, 2 ** 31 - 1, (16, 1 << 19), generator=gen,
+                         dtype=torch.int64).to(torch.int32).cuda()
+    sk, sv = K5.sort_kv_kernel(keys)
+    ref_k, ref_v = torch.sort(keys, dim=1, stable=True)
+    assert torch.equal(sk, ref_k) and torch.equal(sv.long(), ref_v)

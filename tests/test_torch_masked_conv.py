@@ -108,3 +108,73 @@ def test_k3_kernel_widths():
     assert K3.kernel_width(32, 16) == 16
     assert K3.kernel_width(513, 80) == 0 and K3.kernel_width(24, 24) == 0
     assert K3.kernel_width(96, 96) == 48 and K3.kernel_width(192, 192) == 0
+
+
+def _order_masks(order, side=32):
+    """Mask triple (1, 3, 9, HW) of a generation order on a side x side grid."""
+    from pixelsynth_tpu_torch.ops.distance_transform import signed_distance_field
+    from pixelsynth_tpu_torch.ops.orders import masks_from_rank, orders_and_masks
+
+    hw = side * side
+    if order == "half_grid":                      # the right half is outpainted
+        bg = torch.zeros((1, side, side))
+        bg[:, :, side // 2:] = 1.0
+        return orders_and_masks(signed_distance_field(1.0 - bg, bg))[1]
+    rank = (torch.arange(hw) if order == "raster"
+            else torch.as_tensor(np.random.default_rng(11).permutation(hw)))
+    return masks_from_rank(rank[None], H=side, W=side)
+
+
+@pytest.mark.parametrize("dilation", [1, 2])
+@pytest.mark.parametrize("order", ["raster", "half_grid", "random"])
+def test_tile_tap_table_is_any_over_the_folded_mask(order, dilation):
+    """The (tile, tap) table the kernels skip by: 1 exactly where some
+    position of the 128-position tile has the tap on in the folded mask."""
+    from pixelsynth_tpu_torch.ops.conv_pack import TILE, skipped_share, tile_tap_table
+    from pixelsynth_tpu_torch.ops.lmconv_fused import fold_boundary_masks
+
+    side = 32
+    masks = _order_masks(order, side)
+    folded = fold_boundary_masks(masks[:, 1 if dilation == 1 else 2], side, side, 3,
+                                 dilation)                     # (1, HW, 9)
+    table = tile_tap_table(folded)
+    assert table.dtype == torch.int32 and table.shape == (1, side * side // TILE, 9)
+    rows = folded.numpy()
+    for tile in range(side * side // TILE):
+        for tap in range(9):
+            want = bool((rows[0, tile * TILE:(tile + 1) * TILE, tap] != 0).any())
+            assert bool(table[0, tile, tap]) == want, (tile, tap)
+    assert bool(table[:, :, 4].all())             # the centre tap of a B mask is on
+    if order == "raster":                         # nothing below or right of a pixel
+        assert not bool(table[:, :, 5:].any())
+        assert skipped_share(table) == pytest.approx(4 / 9)
+    # the prepared mask carries the table of its own (raw) rows
+    pm = K3.prepare_mask(masks[:, 1])
+    assert torch.equal(pm.taps, tile_tap_table(pm.rows))
+    with pytest.raises(ValueError):
+        tile_tap_table(folded[:, :100])
+
+
+def test_prepared_mask_without_whole_tiles_has_no_table():
+    _, mask, _, _, _ = _inputs(5)                 # HW = 64: no bf16 kernel takes it
+    assert K3.prepare_mask(torch.as_tensor(mask)).taps is None
+
+
+def test_k3_takes_packed_taps():
+    """PackedTaps in place of the weight: same forward, and the backward
+    reads the plain weights they carry."""
+    from pixelsynth_tpu_torch.ops.conv_pack import prepare_taps
+
+    x, mask, w, bias, _ = _inputs(6, cin=16, cout=16)
+    xt, mt, wt, bt = (torch.as_tensor(a) for a in (x, mask, w, bias))
+    packed = prepare_taps(wt, 16)
+    want = K3.locally_masked_conv2d_kernel(xt, mt, wt, bt, dilation=2)
+    assert torch.equal(K3.locally_masked_conv2d_kernel(xt, mt, packed, bt, dilation=2),
+                       want)
+    xg = xt.clone().requires_grad_(True)
+    out = K3.locally_masked_conv2d_kernel_vjp(xg, mt, packed, bt, 2, "bfloat16")
+    assert torch.equal(out.detach(), want)
+    out.sum().backward()
+    xr = xt.clone().requires_grad_(True)
+    K3.locally_masked_conv2d_kernel_vjp(xr, mt, wt, bt, 2, "bfloat16").sum().backward()
+    assert torch.equal(xg.grad, xr.grad)

@@ -142,3 +142,42 @@ def test_splat_raises_on_values_the_port_does_not_implement(field, value):
     with pytest.raises(NotImplementedError, match=field):
         S.splat(torch.as_tensor(pts), torch.ones((1, 64, 3)), torch.as_tensor(valid),
                 W=64, cfg=cfg)
+
+
+def _radix_keys(case):
+    rng = np.random.default_rng(7)
+    E = 1 << 14
+    if case == "dup_heavy_sentinel_tail_B2":
+        keys = rng.integers(0, 500, size=(2, E)).astype(np.int64)
+        keys[1, E // 2:] = 257 << 16
+    elif case == "all_equal":
+        keys = np.full((1, E), 12345, np.int64)
+    elif case == "negative_and_int32_extremes":
+        keys = rng.integers(-2 ** 31, 2 ** 31, size=(1, E), dtype=np.int64)
+        keys[0, :4] = [-2 ** 31, 2 ** 31 - 1, 2 ** 31 - 1, -2 ** 31]
+        keys[0, 100:200] = -1                     # a run of equal negative keys
+    else:                                         # binning-style keys, B = 2
+        keys = ((rng.integers(0, 257, size=(2, E)) << 16)
+                + rng.integers(0, 1 << 16, size=(2, E))).astype(np.int64)
+    return torch.as_tensor(keys.astype(np.int32))
+
+
+@pytest.mark.parametrize("case", ["dup_heavy_sentinel_tail_B2", "all_equal",
+                                  "negative_and_int32_extremes", "binning_keys_B2"])
+def test_radix_plain_is_the_stable_sort(case):
+    """The CUDA kernel's arithmetic in tensor ops (histogram, scans, stable
+    scatter, four 8-bit passes): bit-equal to a stable sort in keys and
+    indices, and to the plain network."""
+    keys = _radix_keys(case)
+    rk, rv = K5.sort_kv_radix_plain(keys)
+    assert rk.dtype == rv.dtype == torch.int32
+    want_k, want_v = torch.sort(keys, dim=1, stable=True)
+    assert torch.equal(rk, want_k)
+    assert torch.equal(rv.long(), want_v)
+    nk, nv = K5.sort_kv_plain(keys)
+    assert torch.equal(rk, nk) and torch.equal(rv, nv)
+
+
+def test_radix_plain_rejects_sizes_the_kernel_does_not_take():
+    with pytest.raises(ValueError):
+        K5.sort_kv_radix_plain(torch.zeros((1, 1 << 13), dtype=torch.int32))
