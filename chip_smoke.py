@@ -8,7 +8,9 @@ prints the final ok line):
   1. build the CUDA kernels (all nvcc processes started together) and
      print the toolchain and the card;
   2. each kernel against its plain PyTorch version at the main path's
-     shapes, timed with CUDA events (K1: pop 16, 32x32 codes, F=80, bf16;
+     shapes, timed with CUDA events (K1: pop 16, 32x32 codes, F=80, bf16,
+     also 33 candidates (rounds) and 16x16 codes, 20 repeated calls
+     bit-identical, one device kernel a pass by the profiler;
      K2: W=256, 2 images x 131072 points, each accumulation; K3: pop 16,
      32x32, (Cin, Cout) = (160, 80), (160, 160) and, dilation 2, (80, 80),
      bf16 and float32; K4: pop 16, 32x32, F=80, with and without the skip,
@@ -184,29 +186,84 @@ def _k1_flops(mu, md, Fc, nr=2):
     return up, down
 
 
-def phase_k1(report, B=16, side=32, Fc=80):
+def _k1_check(tag, B, side, Fc, case="order"):
+    """K1 up and down at (B, side, Fc) on masks `case` against the plain
+    versions (down from the plain stack, so each pass is held alone)."""
+    from pixelsynth_tpu_torch.ops import lmconv_fused as K1
+    from pixelsynth_tpu_torch.ops.conv_pack import skipped_share
+
+    packed, u0, mu, md, *_ = _k1_inputs(B, side, Fc, case=case)
+    kw = dict(H=side, W=side, nr=2, dilation=2, compute_dtype="bfloat16")
+    stack_p = K1.up_plain(u0, mu, md, packed, W=side, nr=2, dilation=2,
+                          compute_dtype="bfloat16")
+    out_p = K1.down_plain(stack_p, mu, md, packed, W=side, nr=2, dilation=2,
+                          compute_dtype="bfloat16")
+    e_up = float((K1.up(u0, mu, md, packed, **kw).float() - stack_p.float()).abs().max())
+    e_dn = float((K1.down(stack_p, mu, md, packed, **kw) - out_p).abs().max())
+    # the tolerance of the main case below: 2% of the activations' range
+    t_up = 0.02 * max(1.0, float(stack_p.float().abs().max()))
+    t_dn = 0.02 * max(1.0, float(out_p.abs().max()))
+    tu, td = K1.tile_tables(mu, md)
+    log(f"[K1] {tag}, masks {case!r} (steps skipped {skipped_share(tu):.3f} / "
+        f"{skipped_share(td):.3f}): up {e_up:.3e} (tol {t_up:.3e}), "
+        f"down {e_dn:.3e} (tol {t_dn:.3e})")
+    if not (e_up <= t_up and e_dn <= t_dn):
+        raise AssertionError(f"K1 disagrees with its plain version ({tag}, masks {case!r})")
+    return max(e_up, e_dn)
+
+
+def device_kernels(fn, reps=10):
+    """The device kernels of `reps` calls of fn, from torch.profiler:
+    ({kernel name: launches}, device us per call: their time over the
+    launches seen, times launches per call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if e.device_time_total > 0]
+    n = sum(e.count for e in hits)
+    per_call = max(1, round(n / reps))
+    return ({e.key: e.count for e in hits},
+            sum(e.device_time_total for e in hits) / max(1, n) * per_call)
+
+
+def host_us(fn, reps=20):
+    """Host time of one fn() call (no synchronisation inside the timed
+    calls: what the caller's thread spends to issue it), after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return t
+
+
+def phase_k1(report, B=16, side=32, Fc=80, others=((33, 32), (8, 16)), repeats=20):
+    """K1 at (B, side, Fc) on the three mask cases and at the `others`
+    sizes (33 candidates: more than the card runs at once, so rounds; 16x16:
+    two tiles, the stitched walk's grid); `repeats` back-to-back calls of
+    each pass bit-identical; one pass is one device kernel; timed."""
     import torch
     from pixelsynth_tpu_torch.ops import lmconv_fused as K1
     from pixelsynth_tpu_torch.ops.conv_pack import skipped_share
 
     kw = dict(H=side, W=side, nr=2, dilation=2, compute_dtype="bfloat16")
-    # the two edges of the (tile, tap) skip, held as the main case is below
-    for case in ("all on", "tiles off"):
-        packed, u0, mu, md, *_ = _k1_inputs(B, side, Fc, case=case)
-        stack_p = K1.up_plain(u0, mu, md, packed, W=side, nr=2, dilation=2,
-                              compute_dtype="bfloat16")
-        out_p = K1.down_plain(stack_p, mu, md, packed, W=side, nr=2, dilation=2,
-                              compute_dtype="bfloat16")
-        e_up = float((K1.up(u0, mu, md, packed, **kw).float() - stack_p.float()).abs().max())
-        e_dn = float((K1.down(stack_p, mu, md, packed, **kw) - out_p).abs().max())
-        t_up = 0.02 * max(1.0, float(stack_p.float().abs().max()))
-        t_dn = 0.02 * max(1.0, float(out_p.abs().max()))
-        tu, td = K1.tile_tables(mu, md)
-        log(f"[K1] masks {case!r} (steps skipped {skipped_share(tu):.3f} / "
-            f"{skipped_share(td):.3f}): up {e_up:.3e} (tol {t_up:.3e}), "
-            f"down {e_dn:.3e} (tol {t_dn:.3e})")
-        if not (e_up <= t_up and e_dn <= t_dn):
-            raise AssertionError(f"K1 disagrees with its plain version, masks {case!r}")
+    groups, cluster = K1.resident_candidates(Fc, side * side)
+    log(f"[K1] the card runs {groups} candidates of {side}x{side} at once "
+        f"(clusters of {cluster} blocks, {side * side // 128} blocks a candidate)")
+    # the two edges of the (tile, tap) skip, and the other sizes
+    worst = max([_k1_check(f"({B}, {side})", B, side, Fc, case)
+                 for case in ("all on", "tiles off")]
+                + [_k1_check(f"({b_}, {s_})", b_, s_, Fc) for b_, s_ in others])
     packed, u0, mu, md, codes, filled, masks = _k1_inputs(B, side, Fc)
     tu, td = K1.tile_tables(mu, md)
     log(f"[K1] masks of the half-empty grid: (tile, tap) steps skipped "
@@ -238,9 +295,30 @@ def phase_k1(report, B=16, side=32, Fc=80):
     log(f"[K1] logits argmax agreement {agree:.4f} (tol >= 0.97)")
     if not (err_up <= tol_up and err_dn <= tol_dn and agree >= 0.97):
         raise AssertionError("K1 disagrees with its plain version")
+    # back-to-back calls: a race between neighbours' counters would show
+    ups = [K1.up(u0, mu, md, packed, **kw) for _ in range(repeats)]
+    downs = [K1.down(stack_p, mu, md, packed, **kw) for _ in range(repeats)]
+    torch.cuda.synchronize()
+    same = (all(torch.equal(x, stack_k) for x in ups),
+            all(torch.equal(x, out_k) for x in downs))
+    log(f"[K1] {repeats} back-to-back calls bit-identical: up {same[0]}, down {same[1]}")
+    if not all(same):
+        raise AssertionError("K1 calls on the same inputs differ")
 
-    up_ms = time_ms(lambda: K1.up(u0, mu, md, packed, **kw))
-    dn_ms = time_ms(lambda: K1.down(stack_p, mu, md, packed, **kw))
+    runs = {"lmconv_up": lambda: K1.up(u0, mu, md, packed, **kw),
+            "lmconv_down": lambda: K1.down(stack_p, mu, md, packed, **kw)}
+    dev = {}
+    for name, fn in runs.items():
+        kernels, dev[name] = device_kernels(fn)
+        n = sum(kernels.values())
+        # the profiler may miss the first launch of its window, never add one
+        log(f"[K1] {name}: device kernels of 10 calls {json.dumps(kernels)}; "
+            f"launches a pass {round(n / 10)}")
+        if len(kernels) != 1 or not 9 <= n <= 10:
+            raise AssertionError(f"10 {name} calls ran {json.dumps(kernels)}, "
+                                 "expected one device kernel a call")
+    up_ms = time_ms(runs["lmconv_up"])
+    dn_ms = time_ms(runs["lmconv_down"])
     up_plain_ms = time_ms(lambda: K1.up_plain(u0, mu, md, packed, W=side, nr=2,
                                               dilation=2, compute_dtype="bfloat16"))
     dn_plain_ms = time_ms(lambda: K1.down_plain(stack_p, mu, md, packed, W=side,
@@ -261,8 +339,9 @@ def phase_k1(report, B=16, side=32, Fc=80):
         t_ops, t_bytes = fl / PEAK_BF16_FLOPS * 1e3, by / PEAK_BYTES * 1e3
         report[name] = _entry(name, "lmconv_fused.cu",
                               f"pixelsynth_tpu/ops/lmconv_fused.py:{line}",
-                              err, ms, pms, t_ops, t_bytes)
-        log(f"[K1] {name}: {ms:.3f} ms kernel, {pms:.3f} ms plain, "
+                              max(err, worst), ms, pms, t_ops, t_bytes)
+        log(f"[K1] {name}: {ms:.3f} ms a call, device {dev[name]:.1f} us, host "
+            f"{host_us(runs[name]):.1f} us a call; {pms:.3f} ms plain, "
             f"{fl / 1e9:.2f} GFLOP needed, bound {max(t_ops, t_bytes):.4f} ms")
 
 

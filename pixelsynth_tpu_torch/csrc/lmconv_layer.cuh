@@ -1,7 +1,8 @@
 // One locally-masked conv layer on a 128-position tile, for Hopper
-// (sm_90a): the body shared by K1 (lmconv_fused.cu: one launch per conv of
-// the fused trunk), K3 (masked_conv.cu: the stand-alone masked conv) and K4
-// (gated_resnet.cu: both convs of a gated resnet in one cooperative launch).
+// (sm_90a): the body shared by K3 (masked_conv.cu: the stand-alone masked
+// conv) and K4 (gated_resnet.cu: both convs of a gated resnet in one
+// cooperative launch).  K1's persistent pass (lmconv_pass.cuh) has a body
+// of its own and shares the helpers, `Layer` and the epilogue.
 //
 // A block owns TP=128 flat positions of one candidate and ALL output
 // channels, so PONO (a reduction over channels) and the gate fuse into the
@@ -294,6 +295,208 @@ __device__ __forceinline__ void mma_step(float (&acc)[NN / 2], uint32_t a_addr,
                    db + (uint64_t)((kk * 2 * w_lbo) >> 4));
 }
 
+// Where K1's pass wants the block's own rows of the next layer's operand
+// in shared memory (lmconv_pass.cuh): the elu halves (K = 2F) or the bf16
+// copy (K = F), row r of the tile at rows + r * pitch.
+struct NextRows {
+  enum Mode { NONE, ELU, BF };
+  int mode;
+  uint32_t rows;
+  int pitch;
+};
+
+__device__ __forceinline__ void st_shared_v2(uint32_t addr, uint2 v) {
+  asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(addr), "r"(v.x), "r"(v.y)
+               : "memory");
+}
+
+// The layer's epilogue, by each consumer thread from its accumulators (the
+// 64 x NOUT sums of its warpgroup, `Wgmma` layout; sacc: the nin skip's).
+// RESIDENT_U (K1's pass, lmconv_pass.cuh): the f32 activation of the
+// block's 128 rows lives in shared memory at `us` (row pitch F + 4
+// floats): the gate residual is read from there, all of it before any
+// store, and a layer given `us` writes its result there (L.out, when set,
+// gets it too); the biases are added before anything is stored; the
+// gate's sigmoid takes the fast reciprocal; and the next layer's operand
+// rows of the tile go to shared memory as well (`next`) as to device
+// memory.
+template <int F, bool WIDE, bool RESIDENT_U = false>
+__device__ __forceinline__ void epilogue(const Layer& L, int HW, int b, int p0,
+                                         bool has_skip,
+                                         float (&acc)[WIDE ? F : F / 2],
+                                         float (&sacc)[WIDE ? 1 : F / 2],
+                                         float* us = nullptr, NextRows next = {}) {
+  constexpr int NOUT = WIDE ? 2 * F : F;
+  constexpr int UP = F + 4;   // shared row pitch of the resident activation
+  const int wg = threadIdx.x >> 7;
+  const int lane = threadIdx.x & 31;
+  float2 og_first[RESIDENT_U && WIDE ? 2 : 1][RESIDENT_U && WIDE ? F / 8 : 1];
+  if constexpr (RESIDENT_U && WIDE) {
+    const int r = wg * 64 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < F / 8; ++j)
+        og_first[h][j] = *reinterpret_cast<const float2*>(
+            us + (r + 8 * h) * UP + 8 * j + 2 * (lane & 3));
+    __syncwarp();   // a lane writes what its neighbour read
+  }
+  if constexpr (RESIDENT_U) {
+    // the biases (and the skip's) go in first, all loads issued together
+    // and none of them after a store
+#pragma unroll
+    for (int j = 0; j < NOUT / 8; ++j) {
+      const float2 bi = *reinterpret_cast<const float2*>(L.bias + 8 * j + 2 * (lane & 3));
+      acc[4 * j] += bi.x;
+      acc[4 * j + 1] += bi.y;
+      acc[4 * j + 2] += bi.x;
+      acc[4 * j + 3] += bi.y;
+    }
+    if constexpr (!WIDE) {
+      if (has_skip) {
+#pragma unroll
+        for (int j = 0; j < F / 8; ++j) {
+          const float2 bi = *reinterpret_cast<const float2*>(L.bs + 8 * j + 2 * (lane & 3));
+          sacc[4 * j] += bi.x;
+          sacc[4 * j + 1] += bi.y;
+          sacc[4 * j + 2] += bi.x;
+          sacc[4 * j + 3] += bi.y;
+        }
+      }
+    }
+  }
+  // epilogue from the registers: this thread holds, of rows r0 and
+  // r0 + 8, the columns 8j + 2q + {0, 1} for every j.  Before a store
+  // the lanes q and q ^ 1 trade halves of the column blocks j, j + 1
+  // (`quad_pair`), so each holds 4 consecutive columns from `c4` on and
+  // the stores are 16 bytes of f32 (8 of bf16) a lane, whole 32-byte
+  // sectors a row.
+  const int q = lane & 3;
+  const bool odd = q & 1;
+  const int c4 = odd ? 8 + 2 * (q - 1) : 2 * q;   // + 8j: first of the 4 columns
+  const int r0 = wg * 64 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int p = p0 + r0 + 8 * h;
+    if (L.linear) {
+      float* orow = L.out + ((size_t)b * HW + p) * NOUT;
+#pragma unroll
+      for (int j = 0; j < NOUT / 8; j += 2) {
+        float v[4];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const float2 bi =
+              *reinterpret_cast<const float2*>(L.bias + 8 * (j + jj) + 2 * q);
+          v[2 * jj] = acc[4 * (j + jj) + 2 * h] + bi.x;
+          v[2 * jj + 1] = acc[4 * (j + jj) + 2 * h + 1] + bi.y;
+        }
+        quad_pair(v, odd);
+        *reinterpret_cast<float4*>(orow + 8 * j + c4) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      }
+      continue;
+    }
+    const size_t o = ((size_t)b * HW + p) * F;
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < F / 8; ++j) {
+      float2 bi = make_float2(0.f, 0.f);
+      if constexpr (!RESIDENT_U) bi = *reinterpret_cast<const float2*>(L.bias + 8 * j + 2 * q);
+      const float x0 = acc[4 * j + 2 * h] + bi.x;
+      const float x1 = acc[4 * j + 2 * h + 1] + bi.y;
+      acc[4 * j + 2 * h] = x0;
+      acc[4 * j + 2 * h + 1] = x1;
+      s1 += x0 + x1;
+      s2 += x0 * x0 + x1 * x1;
+    }
+    const float mean = quad_sum(s1) / F;
+    float var;
+    if (L.pono_two_pass) {
+      float d2 = 0.f;
+#pragma unroll
+      for (int j = 0; j < F / 8; ++j) {
+        const float d0 = acc[4 * j + 2 * h] - mean;
+        const float d1 = acc[4 * j + 2 * h + 1] - mean;
+        d2 += d0 * d0 + d1 * d1;
+      }
+      var = quad_sum(d2) / (F - 1);
+    } else {
+      var = (quad_sum(s2) - F * mean * mean) / (F - 1);
+    }
+    const float rsd = rsqrtf(var + PONO_EPS);
+#pragma unroll
+    for (int j = 0; j < F / 8; j += 2) {
+      float y[4];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int jb = j + jj;
+        const int c = 8 * jb + 2 * q;
+        float y0 = (acc[4 * jb + 2 * h] - mean) * rsd;
+        float y1 = (acc[4 * jb + 2 * h + 1] - mean) * rsd;
+        if constexpr (!WIDE) {
+          if (has_skip) {
+            float2 bsk = make_float2(0.f, 0.f);
+            if constexpr (!RESIDENT_U) bsk = *reinterpret_cast<const float2*>(L.bs + c);
+            y0 += sacc[4 * jb + 2 * h] + bsk.x;
+            y1 += sacc[4 * jb + 2 * h + 1] + bsk.y;
+          }
+        } else {
+          float2 bg = make_float2(0.f, 0.f);
+          if constexpr (!RESIDENT_U) bg = *reinterpret_cast<const float2*>(L.bias + F + c);
+          const float g0 = acc[4 * (jb + F / 8) + 2 * h] + bg.x;
+          const float g1 = acc[4 * (jb + F / 8) + 2 * h + 1] + bg.y;
+          if constexpr (RESIDENT_U) {
+            // eight warps run this epilogue while the tensor cores wait:
+            // the sigmoid's reciprocal is the fast one here
+            y0 = og_first[h][jb].x + y0 * __fdividef(1.f, 1.f + __expf(-g0));
+            y1 = og_first[h][jb].y + y1 * __fdividef(1.f, 1.f + __expf(-g1));
+          } else {
+            const float2 og = *reinterpret_cast<const float2*>(L.og + o + c);
+            y0 = og.x + y0 * __frcp_rn(1.f + __expf(-g0));
+            y1 = og.y + y1 * __frcp_rn(1.f + __expf(-g1));
+          }
+        }
+        y[2 * jj] = y0;
+        y[2 * jj + 1] = y1;
+      }
+      quad_pair(y, odd);
+      const int c = 8 * j + c4;
+      if constexpr (RESIDENT_U) {
+        if (us != nullptr)
+          *reinterpret_cast<float4*>(us + (p - p0) * UP + c) =
+              make_float4(y[0], y[1], y[2], y[3]);
+      }
+      if (L.out != nullptr)
+        *reinterpret_cast<float4*>(L.out + o + c) =
+            make_float4(y[0], y[1], y[2], y[3]);
+      if (L.out_bf != nullptr) {
+        const uint2 v = make_uint2(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]));
+        *reinterpret_cast<uint2*>(L.out_bf + b * L.out_bf_bstride + (size_t)p * F + c) = v;
+        if constexpr (RESIDENT_U) {
+          if (next.mode == NextRows::BF)
+            st_shared_v2(next.rows + (p - p0) * next.pitch + c * 2, v);
+        }
+      }
+      if (L.out_elu != nullptr) {
+        float pos[4], neg[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) elu_halves(y[i], pos[i], neg[i]);
+        const uint2 vp = make_uint2(pack_bf16(pos[0], pos[1]), pack_bf16(pos[2], pos[3]));
+        const uint2 vn = make_uint2(pack_bf16(neg[0], neg[1]), pack_bf16(neg[2], neg[3]));
+        *reinterpret_cast<uint2*>(L.out_elu + 2 * o + c) = vp;
+        *reinterpret_cast<uint2*>(L.out_elu + 2 * o + F + c) = vn;
+        if constexpr (RESIDENT_U) {
+          if (next.mode == NextRows::ELU) {
+            const uint32_t r = next.rows + (p - p0) * next.pitch;
+            st_shared_v2(r + c * 2, vp);
+            st_shared_v2(r + (F + c) * 2, vn);
+          }
+        }
+      }
+    }
+  }
+}
+
 // One masked conv layer of width F on the TP positions from p0 of
 // candidate b.  WIDE: nout = 2F (the gated resnet's second conv, output
 // og + pono(a) * sigmoid(g), or a wide linear conv), else nout = F (PONO,
@@ -474,110 +677,7 @@ __device__ void layer_body(const Layer& L, int HW, int b, int p0,
       asm volatile("" : "+f"(sacc[i])::"memory");
 
 #ifndef LMK_NO_EPILOGUE
-    // epilogue from the registers: this thread holds, of rows r0 and
-    // r0 + 8, the columns 8j + 2q + {0, 1} for every j.  Before a store
-    // the lanes q and q ^ 1 trade halves of the column blocks j, j + 1
-    // (`quad_pair`), so each holds 4 consecutive columns from `c4` on and
-    // the stores are 16 bytes of f32 (8 of bf16) a lane, whole 32-byte
-    // sectors a row.
-    const int q = lane & 3;
-    const bool odd = q & 1;
-    const int c4 = odd ? 8 + 2 * (q - 1) : 2 * q;   // + 8j: first of the 4 columns
-    const int r0 = wg * 64 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int p = p0 + r0 + 8 * h;
-      if (L.linear) {
-        float* orow = L.out + ((size_t)b * HW + p) * NOUT;
-#pragma unroll
-        for (int j = 0; j < NOUT / 8; j += 2) {
-          float v[4];
-#pragma unroll
-          for (int jj = 0; jj < 2; ++jj) {
-            const float2 bi =
-                *reinterpret_cast<const float2*>(L.bias + 8 * (j + jj) + 2 * q);
-            v[2 * jj] = acc[4 * (j + jj) + 2 * h] + bi.x;
-            v[2 * jj + 1] = acc[4 * (j + jj) + 2 * h + 1] + bi.y;
-          }
-          quad_pair(v, odd);
-          *reinterpret_cast<float4*>(orow + 8 * j + c4) =
-              make_float4(v[0], v[1], v[2], v[3]);
-        }
-        continue;
-      }
-      const size_t o = ((size_t)b * HW + p) * F;
-      float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-      for (int j = 0; j < F / 8; ++j) {
-        const float2 bi = *reinterpret_cast<const float2*>(L.bias + 8 * j + 2 * q);
-        const float x0 = acc[4 * j + 2 * h] + bi.x;
-        const float x1 = acc[4 * j + 2 * h + 1] + bi.y;
-        acc[4 * j + 2 * h] = x0;
-        acc[4 * j + 2 * h + 1] = x1;
-        s1 += x0 + x1;
-        s2 += x0 * x0 + x1 * x1;
-      }
-      const float mean = quad_sum(s1) / F;
-      float var;
-      if (L.pono_two_pass) {
-        float d2 = 0.f;
-#pragma unroll
-        for (int j = 0; j < F / 8; ++j) {
-          const float d0 = acc[4 * j + 2 * h] - mean;
-          const float d1 = acc[4 * j + 2 * h + 1] - mean;
-          d2 += d0 * d0 + d1 * d1;
-        }
-        var = quad_sum(d2) / (F - 1);
-      } else {
-        var = (quad_sum(s2) - F * mean * mean) / (F - 1);
-      }
-      const float rsd = rsqrtf(var + PONO_EPS);
-#pragma unroll
-      for (int j = 0; j < F / 8; j += 2) {
-        float y[4];
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const int jb = j + jj;
-          const int c = 8 * jb + 2 * q;
-          float y0 = (acc[4 * jb + 2 * h] - mean) * rsd;
-          float y1 = (acc[4 * jb + 2 * h + 1] - mean) * rsd;
-          if constexpr (!WIDE) {
-            if (has_skip) {
-              const float2 bsk = *reinterpret_cast<const float2*>(L.bs + c);
-              y0 += sacc[4 * jb + 2 * h] + bsk.x;
-              y1 += sacc[4 * jb + 2 * h + 1] + bsk.y;
-            }
-          } else {
-            const float2 bg = *reinterpret_cast<const float2*>(L.bias + F + c);
-            const float g0 = acc[4 * (jb + F / 8) + 2 * h] + bg.x;
-            const float g1 = acc[4 * (jb + F / 8) + 2 * h + 1] + bg.y;
-            const float2 og = *reinterpret_cast<const float2*>(L.og + o + c);
-            y0 = og.x + y0 * __frcp_rn(1.f + __expf(-g0));
-            y1 = og.y + y1 * __frcp_rn(1.f + __expf(-g1));
-          }
-          y[2 * jj] = y0;
-          y[2 * jj + 1] = y1;
-        }
-        quad_pair(y, odd);
-        const int c = 8 * j + c4;
-        if (L.out != nullptr)
-          *reinterpret_cast<float4*>(L.out + o + c) =
-              make_float4(y[0], y[1], y[2], y[3]);
-        if (L.out_bf != nullptr)
-          *reinterpret_cast<uint2*>(L.out_bf + b * L.out_bf_bstride +
-                                    (size_t)p * F + c) =
-              make_uint2(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]));
-        if (L.out_elu != nullptr) {
-          float pos[4], neg[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) elu_halves(y[i], pos[i], neg[i]);
-          *reinterpret_cast<uint2*>(L.out_elu + 2 * o + c) =
-              make_uint2(pack_bf16(pos[0], pos[1]), pack_bf16(pos[2], pos[3]));
-          *reinterpret_cast<uint2*>(L.out_elu + 2 * o + F + c) =
-              make_uint2(pack_bf16(neg[0], neg[1]), pack_bf16(neg[2], neg[3]));
-        }
-      }
-    }
+    epilogue<F, WIDE>(L, HW, b, p0, has_skip, acc, sacc);
 #endif
   }
 }
@@ -646,7 +746,7 @@ inline void make_shifts(int* s, int W, int d) {
     for (int j = 0; j < 3; ++j) s[i * 3 + j] = (i - 1) * d * W + (j - 1) * d;
 }
 
-inline Layer conv_layer(const bf16* a, long long a_bstride, int K,
+__host__ __device__ inline Layer conv_layer(const bf16* a, long long a_bstride, int K,
                         const float* mask, const int* tile_taps, const bf16* w,
                         const float* bias, int nout, const int* shifts) {
   Layer L = {};

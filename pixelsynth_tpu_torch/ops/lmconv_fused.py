@@ -6,7 +6,8 @@ embedding-gather first layer + PONO (PyTorch), the up pass (K1a: ->
 512-way nin (PyTorch; `.at` applies it only to the gathered rows).
 
 `up` / `down` launch the hand-written CUDA kernels of
-csrc/lmconv_fused.cu for CUDA tensors and take their plain PyTorch
+csrc/lmconv_fused.cu (one persistent launch a pass, csrc/lmconv_pass.cuh)
+for CUDA tensors and take their plain PyTorch
 versions `up_plain` / `down_plain` for CPU tensors.  The plain versions
 follow the TPU kernels' formulas step for step: a tap shift is a roll of
 the flat (HW, F) activation with wraparound zeroed by the boundary-folded
@@ -18,6 +19,7 @@ accumulation, and a bf16 skip stack popped top-first from entry 3*nr+2.
 from __future__ import annotations
 
 import ctypes
+from collections import OrderedDict
 from typing import Callable, Dict
 
 import numpy as np
@@ -58,7 +60,8 @@ def pack_lmconv_params(params: Dict[str, torch.Tensor], *, nr_resnet: int = 2,
     K = 2F (and N = 2F) dimension.  Conv weights are cast to the compute
     dtype; biases, the embedding table and the nin stay f32.  In bfloat16
     every conv weight also gets its packed image for the CUDA kernel under
-    "<name>_img" (ops/conv_pack.py), made here, once per model."""
+    "<name>_img" (ops/conv_pack.py), made here, once per model, and the
+    arrays are checked once for the kernel (`check_packed`)."""
     cdt = _cdt(compute_dtype)
     nr = nr_resnet
     n_up, n_dn = 3 * nr, 3 * nr + 2
@@ -96,6 +99,7 @@ def pack_lmconv_params(params: Dict[str, torch.Tensor], *, nr_resnet: int = 2,
         for name in CONV_WEIGHTS:
             w = packed[name]
             packed[f"{name}_img"] = pack_taps(w if w.dim() == 4 else w[:, None], Fc)
+        check_packed(packed, nr)
     return packed
 
 
@@ -238,32 +242,56 @@ def down_plain(stack, mu, md, packed, *, W, nr, dilation, compute_dtype):
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U64 = ctypes.c_ulonglong
 
 
 def _lib():
     lib = _cuda.load("lmconv_fused")
     if not getattr(lib, "_typed", False):
-        lib.lmconv_fused_up.argtypes = [_P] * 16 + [_I] * 6 + [_P]
+        lib.lmconv_fused_up.argtypes = [_P] * 16 + [_I] * 7 + [_U64, _P]
         lib.lmconv_fused_up.restype = _I
-        lib.lmconv_fused_down.argtypes = [_P] * 18 + [_I] * 6 + [_P]
+        lib.lmconv_fused_down.argtypes = [_P] * 19 + [_I] * 7 + [_U64, _P]
         lib.lmconv_fused_down.restype = _I
+        lib.lmconv_fused_groups.argtypes = [_I, _I]
+        lib.lmconv_fused_groups.restype = _I
+        lib.lmconv_fused_cluster.argtypes = []
+        lib.lmconv_fused_cluster.restype = _I
         lib._typed = True
     return lib
 
 
-def _check_common(x, mu, md, packed, *, H, W, nr, dilation, compute_dtype):
-    B, HW, Fc = x.shape[0], x.shape[-2], x.shape[-1]
-    if compute_dtype != "bfloat16":
-        raise ValueError("the CUDA K1 kernel computes in bfloat16 only")
-    if HW != H * W or HW % 128 or Fc % 16 or Fc > 80:
-        raise ValueError(f"K1 kernel needs HW % 128 == 0, F % 16 == 0 and "
-                         f"F <= 80, got HW={HW}, F={Fc}")
+def dependency_window(W: int, dilation: int, tile: int = TILE) -> int:
+    """Tiles each side of a tile that a layer of a K1 pass reads: the
+    largest tap shift of the 3x3 convs (dilation 1 and `dilation`) on a
+    width-W grid, in tiles of `tile` flat positions, rounded up.  A block
+    of the pass waits for the counters of these tiles before it copies a
+    layer's operand rows."""
+    reach = max(abs(s) for d in (1, dilation) for s in shifts(3, d, W))
+    return -(-reach // tile)
+
+
+# shared memory a block of the pass keeps for a layer's operand rows
+# (csrc/lmconv_pass.cuh A_REGION); a row of K channels takes 2K + 16 bytes
+RESIDENT_ROW_BYTES = 72 * 1024
+
+
+def rows_fit(W: int, dilation: int, Fc: int, tile: int = TILE) -> bool:
+    """Whether a tile's rows and both halos fit the pass's resident rows:
+    the 3x3 convs on K = 2F channels (dilation 1) and on K = F (dilation
+    `dilation`), on a width-W grid."""
+    for d, K in ((1, 2 * Fc), (dilation, Fc)):
+        halo = max(abs(s) for s in shifts(3, d, W))
+        if (tile + 2 * halo) * (2 * K + 16) > RESIDENT_ROW_BYTES:
+            return False
+    return True
+
+
+def packed_shapes(nr: int, Fc: int):
+    """{name: (dtype, shape)} of every array the CUDA passes read from
+    `pack_lmconv_params`' output at width Fc (the images flat per layer)."""
     n_up, n_dn = 3 * nr, 3 * nr + 2
-    dev = x.device
-    _cuda.require(mu, "mu", dtype=torch.float32, shape=(B, HW, 9), device=dev)
-    _cuda.require(md, "md", dtype=torch.float32, shape=(B, HW, 9), device=dev)
-    bf = torch.bfloat16
-    f32 = torch.float32
+    bf, f32 = torch.bfloat16, torch.float32
+    out = {}
     for name, dt, shape in (
             ("uw1", bf, (n_up, 9, 2 * Fc, Fc)), ("ub1", f32, (n_up, Fc)),
             ("uw2", bf, (n_up, 9, 2 * Fc, 2 * Fc)), ("ub2", f32, (n_up, 2 * Fc)),
@@ -272,11 +300,104 @@ def _check_common(x, mu, md, packed, *, H, W, nr, dilation, compute_dtype):
             ("dws", bf, (n_dn, 2 * Fc, Fc)), ("dbs", f32, (n_dn, Fc)),
             ("dw2", bf, (n_dn, 9, 2 * Fc, 2 * Fc)), ("db2", f32, (n_dn, 2 * Fc)),
             ("ddw", bf, (2, 9, Fc, Fc)), ("ddb", f32, (2, Fc))):
-        _cuda.require(packed[name], name, dtype=dt, shape=shape, device=dev)
+        out[name] = (dt, shape)
         if name in CONV_WEIGHTS:
-            _cuda.require(packed[f"{name}_img"], f"{name}_img", dtype=bf,
-                          shape=(shape[0], packed[name][0].numel()), device=dev)
-    return B, HW, Fc
+            n = 1
+            for d in shape[1:]:
+                n *= d
+            out[f"{name}_img"] = (bf, (shape[0], n))
+    return out
+
+
+def check_packed(packed: Dict, nr: int) -> int:
+    """Raise unless `packed` holds every array the CUDA passes read, in
+    bf16 (f32 biases), of one width and on one device, contiguous; returns
+    the width.  `pack_lmconv_params` calls it once and records the result
+    under "k1_checked", so a call of `up` / `down` does not repeat it."""
+    if "uw1" not in packed or packed["uw1"].dim() != 4:
+        raise ValueError("K1: packed weights lack uw1 (use pack_lmconv_params)")
+    Fc = packed["uw1"].shape[-1]
+    dev = packed["uw1"].device
+    for name, (dt, shape) in packed_shapes(nr, Fc).items():
+        t = packed.get(name)
+        if t is None:
+            raise ValueError(f"K1: packed weights lack {name}")
+        if t.dtype != dt or tuple(t.shape) != shape or t.device != dev \
+                or not t.is_contiguous():
+            raise ValueError(f"K1: {name} is {t.dtype} {tuple(t.shape)} on {t.device}, "
+                             f"expected contiguous {dt} {shape} on {dev}")
+    packed["k1_checked"] = (nr, Fc, str(dev))
+    return Fc
+
+
+class Workspace:
+    """Scratch of the K1 passes for one (B, HW, F, device): the bf16
+    operands the layers exchange (the f32 activation stays in the blocks'
+    shared memory) and the per-(candidate, tile) layer counters (plus one
+    grid-wide count), zeroed once when made.  Calls on one stream use it
+    in turn; each call takes the next epoch, so the counters never need
+    resetting."""
+
+    def __init__(self, B: int, HW: int, Fc: int, device):
+        bf = torch.bfloat16
+        self.ue = torch.empty((B, HW, 2 * Fc), dtype=bf, device=device)
+        self.xe = torch.empty((B, HW, 2 * Fc), dtype=bf, device=device)
+        self.ubf = torch.empty((B, HW, Fc), dtype=bf, device=device)
+        self.flags = torch.zeros(B * (HW // TILE) + 1, dtype=torch.int64, device=device)
+        self.epoch = 0
+
+    def next_epoch(self) -> int:
+        self.epoch += 1
+        return self.epoch
+
+
+_WORKSPACES: "OrderedDict[tuple, Workspace]" = OrderedDict()
+WORKSPACES_KEPT = 8
+
+
+def workspace(B: int, HW: int, Fc: int, device) -> Workspace:
+    """The cached `Workspace` of (B, HW, Fc, device); the least recently
+    used is dropped beyond WORKSPACES_KEPT."""
+    key = (B, HW, Fc, str(torch.device(device)))
+    ws = _WORKSPACES.pop(key, None)
+    if ws is None:
+        ws = Workspace(B, HW, Fc, device)
+    _WORKSPACES[key] = ws
+    while len(_WORKSPACES) > WORKSPACES_KEPT:
+        _WORKSPACES.popitem(last=False)
+    return ws
+
+
+# the stamps buffer of an LMK_STAMPS build (tools/profile_k1.py sets it)
+STAMPS = {"buffer": None}
+
+
+def _check_call(x, mu, md, packed, tables, *, H, W, nr, dilation, compute_dtype):
+    """The per-call checks of `up` / `down`: shapes of the activations and
+    masks; the packed weights only when not checked yet for this nr."""
+    B, HW, Fc = x.shape[0], x.shape[-2], x.shape[-1]
+    if compute_dtype != "bfloat16":
+        raise ValueError("the CUDA K1 kernel computes in bfloat16 only")
+    if HW != H * W or HW % TILE or Fc % 16 or Fc > 80 or not 1 <= nr <= 4:
+        raise ValueError(f"K1 kernel needs HW % 128 == 0, F % 16 == 0, F <= 80 "
+                         f"and 1 <= nr <= 4, got HW={HW}, F={Fc}, nr={nr}")
+    if not rows_fit(W, dilation, Fc):
+        raise ValueError(f"K1 kernel: a tile's rows and halo at width W={W}, "
+                         f"dilation {dilation}, F={Fc} exceed its shared memory")
+    checked = packed.get("k1_checked")
+    if checked is None or checked[0] != nr:
+        check_packed(packed, nr)
+        checked = packed["k1_checked"]
+    if checked[1:] != (Fc, str(x.device)):
+        raise ValueError(f"K1: weights of width {checked[1]} on {checked[2]}, "
+                         f"input of width {Fc} on {x.device}")
+    for m, name in ((mu, "mu"), (md, "md")):
+        _cuda.require(m, name, dtype=torch.float32, shape=(B, HW, 9), device=x.device)
+    tu, td = tables if tables is not None else tile_tables(mu, md)
+    for t, name in ((tu, "tables[0]"), (td, "tables[1]")):
+        _cuda.require(t, name, dtype=torch.int32, shape=(B, HW // TILE, 9),
+                      device=x.device)
+    return B, HW, Fc, tu, td
 
 
 def tile_tables(mu, md):
@@ -285,41 +406,34 @@ def tile_tables(mu, md):
     return tile_tap_table(mu), tile_tap_table(md)
 
 
-def _check_tables(tables, mu, md):
-    B, HW, _ = mu.shape
-    tu, td = tables if tables is not None else tile_tables(mu, md)
-    for t, name in ((tu, "tables[0]"), (td, "tables[1]")):
-        _cuda.require(t, name, dtype=torch.int32, shape=(B, HW // TILE, 9),
-                      device=mu.device)
-    return tu, td
+def _stamps():
+    buf = STAMPS["buffer"]
+    return _cuda.ptr(buf) if buf is not None else None
 
 
 def up(u0, mu, md, packed, *, H, W, nr, dilation, compute_dtype="bfloat16",
        tables=None):
     """K1a.  u0 (B, HW, F) f32, mu/md (B, HW, 9) folded masks -> skip stack
-    (B, 3nr+3, HW, F) bf16.  tables: `tile_tables(mu, md)`, made at this
-    call when not given."""
+    (B, 3nr+3, HW, F) bf16: one launch.  tables: `tile_tables(mu, md)`,
+    made at this call when not given."""
     if not u0.is_cuda:
         return up_plain(u0, mu, md, packed, W=W, nr=nr, dilation=dilation,
                         compute_dtype=compute_dtype)
-    B, HW, Fc = _check_common(u0, mu, md, packed, H=H, W=W, nr=nr,
-                              dilation=dilation, compute_dtype=compute_dtype)
+    B, HW, Fc, tu, td = _check_call(u0, mu, md, packed, tables, H=H, W=W, nr=nr,
+                                    dilation=dilation, compute_dtype=compute_dtype)
     _cuda.require(u0, "u0", dtype=torch.float32, shape=(B, HW, Fc))
     if packed["uw1"].requires_grad or u0.requires_grad:
         raise ValueError("K1 serves inference only: no gradient")
-    tu, td = _check_tables(tables, mu, md)
+    ws = workspace(B, HW, Fc, u0.device)
     stack = torch.empty((B, 3 * nr + 3, HW, Fc), dtype=torch.bfloat16,
                         device=u0.device)
-    ua, ub = torch.empty_like(u0), torch.empty_like(u0)
-    ue, xe = (torch.empty((B, HW, 2 * Fc), dtype=torch.bfloat16, device=u0.device)
-              for _ in range(2))
     P = _cuda.ptr
     rc = _lib().lmconv_fused_up(
         P(u0), P(mu), P(md), P(tu), P(td), P(packed["uw1_img"]),
         P(packed["ub1"]), P(packed["uw2_img"]), P(packed["ub2"]),
-        P(packed["udw_img"]), P(packed["udb"]),
-        P(stack), P(ua), P(ub), P(ue), P(xe), B, H, W, Fc, nr, dilation,
-        _cuda.stream_of(u0))
+        P(packed["udw_img"]), P(packed["udb"]), P(stack), P(ws.ue), P(ws.xe),
+        P(ws.flags), _stamps(), B, H, W, Fc, nr, dilation,
+        dependency_window(W, dilation), ws.next_epoch(), _cuda.stream_of(u0))
     _cuda.check(rc, "lmconv_fused_up")
     LAUNCHES["lmconv_up"] += 1
     return stack
@@ -327,31 +441,38 @@ def up(u0, mu, md, packed, *, H, W, nr, dilation, compute_dtype="bfloat16",
 
 def down(stack, mu, md, packed, *, H, W, nr, dilation,
          compute_dtype="bfloat16", tables=None):
-    """K1b.  skip stack (B, 3nr+3, HW, F) bf16 -> (B, HW, F) f32.  tables
-    as for `up`."""
+    """K1b.  skip stack (B, 3nr+3, HW, F) bf16 -> (B, HW, F) f32: one
+    launch.  tables as for `up`."""
     if not stack.is_cuda:
         return down_plain(stack, mu, md, packed, W=W, nr=nr,
                           dilation=dilation, compute_dtype=compute_dtype)
-    B, HW, Fc = _check_common(stack, mu, md, packed, H=H, W=W, nr=nr,
-                              dilation=dilation, compute_dtype=compute_dtype)
+    B, HW, Fc, tu, td = _check_call(stack, mu, md, packed, tables, H=H, W=W, nr=nr,
+                                    dilation=dilation, compute_dtype=compute_dtype)
     _cuda.require(stack, "stack", dtype=torch.bfloat16,
                   shape=(B, 3 * nr + 3, HW, Fc))
-    tu, td = _check_tables(tables, mu, md)
+    ws = workspace(B, HW, Fc, stack.device)
     out = torch.empty((B, HW, Fc), dtype=torch.float32, device=stack.device)
-    u_b = torch.empty_like(out)
-    ue, xe = (torch.empty((B, HW, 2 * Fc), dtype=torch.bfloat16, device=out.device)
-              for _ in range(2))
-    ubf = torch.empty((B, HW, Fc), dtype=torch.bfloat16, device=out.device)
     P = _cuda.ptr
     rc = _lib().lmconv_fused_down(
         P(stack), P(mu), P(md), P(tu), P(td), P(packed["dw1_img"]),
         P(packed["db1"]), P(packed["dws_img"]), P(packed["dbs"]),
         P(packed["dw2_img"]), P(packed["db2"]), P(packed["ddw_img"]),
-        P(packed["ddb"]), P(out), P(u_b), P(ue), P(xe), P(ubf),
-        B, H, W, Fc, nr, dilation, _cuda.stream_of(stack))
+        P(packed["ddb"]), P(out), P(ws.ue), P(ws.xe), P(ws.ubf),
+        P(ws.flags), _stamps(), B, H, W, Fc, nr, dilation,
+        dependency_window(W, dilation), ws.next_epoch(), _cuda.stream_of(stack))
     _cuda.check(rc, "lmconv_fused_down")
     LAUNCHES["lmconv_down"] += 1
     return out
+
+
+def resident_candidates(Fc: int, HW: int) -> int:
+    """Candidates a K1 pass runs at once on this card (more are rounds of
+    the same launch), and the blocks of one cluster: (groups, cluster)."""
+    lib = _lib()
+    groups = lib.lmconv_fused_groups(Fc, HW)
+    if groups < 0:
+        _cuda.check(-groups, "lmconv_fused_groups")
+    return groups, lib.lmconv_fused_cluster()
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Device time of the one-launch kernels (K3, K4, K5), on the card.
+"""Device time of the kernels (K1 up and down, K2, K3, K4, K5), on the card.
 
   python3 -m pixelsynth_tpu_torch.tools.device_times
 
@@ -6,8 +6,9 @@ A call of these wrappers is one or a few launches, and the host's work for
 a call can exceed the kernels' time: CUDA events around back-to-back calls
 (chip_smoke.time_ms) then read the host.  This reads the kernels' own
 durations from torch.profiler, at chip_smoke.py's shapes (pop 16, 32x32,
-F=80, bf16, the masks of the half-empty grid; the binning keys of 131072
-points, (1, 2^19)), beside the time of a call, and for K5 beside
+F=80, bf16, the masks of the half-empty grid; K2 at W=256, 2 images x
+131072 points; the binning keys of 131072 points, (1, 2^19)), beside the
+time of a call, and for K5 beside
 torch.sort(stable=True).  It uses only the wrappers' public signatures, so
 a copy of this file runs unchanged in an older checkout of the repository
 (to compare two versions inside one run on one card).
@@ -52,6 +53,8 @@ def main():
     import chip_smoke as cs
     from pixelsynth_tpu_torch.config import SplatConfig
     from pixelsynth_tpu_torch.ops import gated_resnet_kernel as K4
+    from pixelsynth_tpu_torch.ops import lmconv_fused as K1
+    from pixelsynth_tpu_torch.ops import splat as K2
     from pixelsynth_tpu_torch.ops import masked_conv_kernel as K3
     from pixelsynth_tpu_torch.ops import sort_kernel as K5
     from pixelsynth_tpu_torch.ops.splat import _image_sort_keys
@@ -75,6 +78,20 @@ def main():
         call = cs.time_ms(fn) * 1e3
         print(f"[{tag}] device {total:.1f} us a call {json.dumps(by)}; "
               f"a call takes {call:.1f} us (CUDA events)", flush=True)
+
+    packed, u0, mu, md, *_ = cs._k1_inputs(B, side, Fc)
+    kw = dict(H=side, W=side, nr=2, dilation=2, compute_dtype="bfloat16",
+              tables=K1.tile_tables(mu, md))
+    stack = K1.up(u0, mu, md, packed, **kw)
+    report("K1 up", lambda: K1.up(u0, mu, md, packed, **kw))
+    report("K1 down", lambda: K1.down(stack, mu, md, packed, **kw))
+
+    W2, pts, fts, vld = cs._k2_inputs(W=256, N=65536 * 2)
+    scfg = SplatConfig()
+    slot_idx, slot_valid = K2._bin_points_batched(pts, vld, W2, scfg)
+    spts, sfts, svld = K2.gather_slots(pts, fts, slot_idx, slot_valid)
+    org = K2.tile_origins(W2, scfg.tile_size, pts.device).repeat(pts.shape[0], 1)
+    report("K2 splat blend", lambda: K2.blend_tiles(spts, sfts, svld, org, W2, scfg))
 
     for cin, cout, dil, mi in ((2 * Fc, Fc, 1, 1), (2 * Fc, 2 * Fc, 1, 1), (Fc, Fc, 2, 2)):
         x = torch.randn((B, side, side, cin), generator=gen).to(cs.DEVICE)

@@ -1,21 +1,28 @@
 """K1's and K4's time by part, on the card.
 
-  python3 -m pixelsynth_tpu_torch.tools.profile_k1
+  python3 -m pixelsynth_tpu_torch.tools.profile_k1 [--k1-only]
 
 At chip_smoke.py's K1 shapes (16 candidates, 32x32 codes, F=80, bf16):
-  1. the device time of every launch of one up + down pass
-     (torch.profiler), averaged by layer kind, beside the pass's time;
-  2. the up / down pass times (CUDA events, chip_smoke.time_ms) of the
-     layer body (csrc/lmconv_layer.cuh) built with one part compiled out
-     by a macro: the epilogue (LMK_NO_EPILOGUE), the tensor-core products
-     (LMK_NO_MMA), the producer's copies of the operand rows
-     (LMK_NO_COPY; the weights' bulk copy stays);
-  3. K4 (one gated resnet, with and without the skip) with the same parts
+  1. the device kernels of one up + down pass (torch.profiler): one a
+     pass, and its device time;
+  2. the time of each stage inside a pass and of its parts (waiting for
+     the neighbours' counters, the rows' copy, each consumer warpgroup's
+     products and epilogue, the publish): a build with LMK_STAMPS writes
+     %globaltimer at seven points of every stage (csrc/lmconv_pass.cuh);
+     the means over the blocks, by layer kind;
+  3. the up / down pass's call time (CUDA events, chip_smoke.time_ms) and
+     device time (profiler) of builds beside the plain one: the
+     neighbours' counters replaced by a grid-wide count (LMK_GRID_SYNC),
+     clusters of 2 sharing the weights' copies (LMK_MULTICAST), and with
+     one part compiled out: the epilogue (LMK_NO_EPILOGUE), the
+     tensor-core products (LMK_NO_MMA), the copies of the operand rows
+     (LMK_NO_COPY; the weights' bulk copies stay);
+  4. K4 (one gated resnet, with and without the skip) with the same parts
      compiled out and, its own, the two grid barriers (LMK_NO_GRID_SYNC)
      and phase 0 (LMK_NO_PHASE0): the kernel's device time from the
-     profiler, beside the time of a call.
-The variants compute wrong values; only their times are read.  Needs a
-CUDA device and nvcc; prints the card's name and power limit.
+     profiler, beside the time of a call (left out with --k1-only).
+The part variants compute wrong values; only their times are read.  Needs
+a CUDA device and nvcc; prints the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -23,7 +30,6 @@ from __future__ import annotations
 import json
 import os
 import sys
-import tempfile
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
@@ -34,18 +40,24 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 BODY_VARIANTS = {"whole": [], "no epilogue": ["LMK_NO_EPILOGUE"],
                  "no products": ["LMK_NO_MMA"], "no copies": ["LMK_NO_COPY"],
                  "no products, no copies": ["LMK_NO_MMA", "LMK_NO_COPY"]}
+K1_VARIANTS = dict(BODY_VARIANTS, **{
+    "grid-wide count, no flags": ["LMK_GRID_SYNC"],
+    "multicast (clusters of 2)": ["LMK_MULTICAST"]})
+STAMP_VARIANTS = {"clusters of 1": ["LMK_STAMPS"],
+                  "clusters of 2": ["LMK_STAMPS", "LMK_MULTICAST"]}
 K4_VARIANTS = dict(BODY_VARIANTS, **{
     "no grid barriers": ["LMK_NO_GRID_SYNC"], "no phase 0": ["LMK_NO_PHASE0"],
     "no grid barriers, no phase 0": ["LMK_NO_GRID_SYNC", "LMK_NO_PHASE0"]})
 
 
-def _launch_kinds(nr: int):
-    """Layer kinds of one up + down pass, in launch order."""
+def layer_kinds(nr: int, up: bool):
+    """Stage names of one pass in order: phase 0, then its layers."""
     gated = ["gated conv 1", "gated conv 2"]
-    up = ["init"] + gated * nr + ["dilated"] + gated * nr + ["dilated"] + gated * nr
-    down = (["init"] + gated * nr + ["dilated"] + gated * (nr + 1) + ["dilated"]
-            + gated * (nr + 1))
-    return up + down
+    blocks = (nr, nr, nr) if up else (nr, nr + 1, nr + 1)
+    kinds = ["phase 0"]
+    for i, n in enumerate(blocks):
+        kinds += gated * n + (["dilated"] if i < 2 else [])
+    return kinds
 
 
 def _device_us(fn, kernel: str, reps: int = 10) -> float:
@@ -63,6 +75,32 @@ def _device_us(fn, kernel: str, reps: int = 10) -> float:
     return sum(e.device_time_total for e in hits) / max(1, sum(e.count for e in hits))
 
 
+PARTS = ("neighbours", "rows", "products", "products, warpgroup 1 after 0",
+         "epilogue 0", "epilogue 1", "publish")
+
+
+def stage_us(stamps: torch.Tensor, n_stages: int):
+    """(blocks, 256) globaltimer ns of one pass (csrc/lmconv_pass.cuh
+    `stamp`) -> per stage, the mean us over the blocks that ran of: the
+    whole stage (publish to publish; phase 0 from the start) and, for a
+    layer, its parts: waiting for the window's counters after the block's
+    own last publish, the rows' copy, consumer warpgroup 0's products and
+    how much later warpgroup 1's end, each warpgroup's epilogue, and the
+    rest up to the publish (the barrier of both)."""
+    t = stamps.view(-1, 256).double().cpu()
+    t = t[t[:, 0] > 0]
+    out = [{"stage": float((t[:, 0] - t[:, 255]).mean()) / 1e3}]
+    for j in range(1, n_stages):
+        pub, win, rows, prod0, prod1, epi0, epi1 = (t[:, 8 * j + k] for k in range(7))
+        prev = t[:, 8 * (j - 1)]
+        parts = (win - prev, rows - win, prod0 - rows, prod1 - prod0, epi0 - prod0,
+                 epi1 - prod1, pub - torch.maximum(epi0, epi1))
+        row = {"stage": float((pub - prev).mean()) / 1e3}
+        row.update({k: float(v.mean()) / 1e3 for k, v in zip(PARTS, parts)})
+        out.append(row)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_k1: needs a CUDA device")
@@ -70,61 +108,71 @@ def main():
     import chip_smoke as cs
     from pixelsynth_tpu_torch.ops import _cuda
     from pixelsynth_tpu_torch.ops import lmconv_fused as K1
+    from pixelsynth_tpu_torch.ops import gated_resnet_kernel as K4
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    packed, u0, mu, md, *_ = cs._k1_inputs(16, 32, 80)
-    kw = dict(H=32, W=32, nr=2, dilation=2, compute_dtype="bfloat16",
+    B, side, nr = 16, 32, 2
+    packed, u0, mu, md, *_ = cs._k1_inputs(B, side, 80)
+    kw = dict(H=side, W=side, nr=nr, dilation=2, compute_dtype="bfloat16",
               tables=K1.tile_tables(mu, md))
+    stack = K1.up(u0, mu, md, packed, **kw)
+    passes = {"up": lambda: K1.up(u0, mu, md, packed, **kw),
+              "down": lambda: K1.down(stack, mu, md, packed, **kw)}
 
-    def one_pass():
-        return K1.down(K1.up(u0, mu, md, packed, **kw), mu, md, packed, **kw)
-
-    for _ in range(3):
-        one_pass()
-    torch.cuda.synchronize()
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        one_pass()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        trace = os.path.join(tmp, "k1.json")
-        prof.export_chrome_trace(trace)
-        events = [e for e in json.load(open(trace))["traceEvents"]
-                  if e.get("cat") == "kernel"]
-    events.sort(key=lambda e: e["ts"])
-    kinds = _launch_kinds(2)
-    if len(events) != len(kinds):
-        raise AssertionError(f"{len(events)} launches traced, {len(kinds)} expected")
-    by_kind = {}
-    for kind, e in zip(kinds, events):
-        by_kind.setdefault(kind, []).append(e["dur"])
-    print("[trace] us per launch: " + json.dumps(
-        {k: round(sum(v) / len(v), 1) for k, v in by_kind.items()}))
-    # the profiler slows the host's launches, so the pass is timed without it
-    print(f"[trace] {len(events)} launches busy {sum(e['dur'] for e in events):.1f} us; "
-          f"the pass takes {cs.time_ms(one_pass) * 1e3:.1f} us (CUDA events)")
+    for name, fn in passes.items():
+        kernels, dev = cs.device_kernels(fn)
+        print(f"[trace] {name}: device kernels of 10 calls {json.dumps(kernels)}; "
+              f"device {dev:.1f} us a pass; a call {cs.time_ms(fn) * 1e3:.1f} us "
+              f"(CUDA events)", flush=True)
 
     # every variant is a library of its own, all built together first
-    from pixelsynth_tpu_torch.ops import gated_resnet_kernel as K4
-
-    jobs = [(source, macros)
-            for source, variants in (("lmconv_fused", BODY_VARIANTS),
-                                     ("gated_resnet", K4_VARIANTS))
-            for macros in variants.values()]
+    k4 = "--k1-only" not in sys.argv
+    jobs = ([("lmconv_fused", m)
+             for m in list(K1_VARIANTS.values()) + list(STAMP_VARIANTS.values())]
+            + [("gated_resnet", m) for m in K4_VARIANTS.values() if k4])
     with ThreadPoolExecutor(len(jobs)) as pool:   # each thread waits on its nvcc
         list(pool.map(lambda job: _cuda.build([job[0]], defines=job[1]), jobs))
-    stack = K1.up(u0, mu, md, packed, **kw)
     plain_lib = _cuda.load("lmconv_fused")
-    for name, macros in BODY_VARIANTS.items():
+
+    K1.STAMPS["buffer"] = torch.zeros(B * side * side // 128 * 256, dtype=torch.int64,
+                                      device="cuda")
+    for variant, macros in STAMP_VARIANTS.items():
         _cuda._libs["lmconv_fused"] = _cuda.load_variant("lmconv_fused", macros)
         K1._lib()
-        up = cs.time_ms(lambda: K1.up(u0, mu, md, packed, **kw))
-        down = cs.time_ms(lambda: K1.down(stack, mu, md, packed, **kw))
-        print(f"[K1 parts] {name:30s} up {up:.3f} ms  down {down:.3f} ms", flush=True)
+        for name, fn in passes.items():
+            kinds = layer_kinds(nr, name == "up")
+            fn()
+            torch.cuda.synchronize()
+            K1.STAMPS["buffer"].zero_()
+            fn()
+            torch.cuda.synchronize()
+            stages = stage_us(K1.STAMPS["buffer"], len(kinds))
+            by_kind = {}
+            for kind, st in zip(kinds, stages):
+                by_kind.setdefault(kind, []).append(st)
+            mean = {k: {p: round(sum(x[p] for x in v) / len(v), 2) for p in v[0]}
+                    for k, v in by_kind.items()}
+            print(f"[stages] {variant}, {name}: us a stage, in order "
+                  f"{json.dumps([round(x['stage'], 2) for x in stages])}; sum "
+                  f"{sum(x['stage'] for x in stages):.1f} us; mean by kind, with parts "
+                  f"{json.dumps(mean)}", flush=True)
+    K1.STAMPS["buffer"] = None
+
+    for name, macros in K1_VARIANTS.items():
+        _cuda._libs["lmconv_fused"] = _cuda.load_variant("lmconv_fused", macros)
+        K1._lib()
+        up = cs.time_ms(passes["up"])
+        down = cs.time_ms(passes["down"])
+        dev_up = _device_us(passes["up"], "pass_kernel")
+        dev_dn = _device_us(passes["down"], "pass_kernel")
+        print(f"[K1 parts] {name:30s} up {up:.3f} ms (device {dev_up:.1f} us)  "
+              f"down {down:.3f} ms (device {dev_dn:.1f} us)", flush=True)
     _cuda._libs["lmconv_fused"] = plain_lib
 
+    if not k4:
+        print(cs.card_line())
+        return
     gen = torch.Generator().manual_seed(4)
     _, pm, og, a, (w1, b1, ws, bs, w2, b2) = cs._k4_case(16, 32, 80, "order", gen)
     from pixelsynth_tpu_torch.ops.conv_pack import prepare_taps

@@ -19,11 +19,35 @@ def _need_card():
 @pytest.mark.gpu
 @pytest.mark.parametrize("width", [32, 80])
 def test_k1_matches_plain_on_card(width):
-    """K1a/K1b at 4 candidates, 32x32 codes; F=80 is the main path's."""
+    """K1a/K1b at 4 candidates, 32x32 codes, on the three mask cases; F=80
+    is the main path's.  Also 33 candidates and 8 of 16x16, 20 repeated
+    calls bit-identical, one device kernel a pass."""
     _need_card()
     import chip_smoke
 
     chip_smoke.phase_k1({}, B=4, side=32, Fc=width)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,side", [(33, 32), (16, 16), (2, 16)])
+def test_k1_rounds_and_two_tiles_on_card(B, side):
+    """33 candidates: more than the card runs at once, so rounds of one
+    launch; 16x16 codes: two tiles a candidate, one cluster (the stitched
+    walk's grid).  Each pass against its plain version, then 20 calls
+    bit-identical."""
+    _need_card()
+    import torch
+    import chip_smoke
+    from pixelsynth_tpu_torch.ops import lmconv_fused as K1
+
+    chip_smoke._k1_check(f"({B}, {side})", B, side, 80)
+    packed, u0, mu, md, *_ = chip_smoke._k1_inputs(B, side, 80)
+    kw = dict(H=side, W=side, nr=2, dilation=2, compute_dtype="bfloat16")
+    stack = K1.up(u0, mu, md, packed, **kw)
+    out = K1.down(stack, mu, md, packed, **kw)
+    for _ in range(20):
+        assert torch.equal(K1.up(u0, mu, md, packed, **kw), stack)
+        assert torch.equal(K1.down(stack, mu, md, packed, **kw), out)
 
 
 @pytest.mark.gpu
