@@ -11,9 +11,14 @@ prints the final ok line):
      shapes, timed with CUDA events (K1: pop 16, 32x32 codes, F=80, bf16,
      also 33 candidates (rounds) and 16x16 codes, 20 repeated calls
      bit-identical, one device kernel a pass by the profiler;
-     K2: W=256, 2 images x 131072 points, each accumulation; K3: pop 16,
-     32x32, (Cin, Cout) = (160, 80), (160, 160) and, dilation 2, (80, 80),
-     bf16 and float32; K4: pop 16, 32x32, F=80, with and without the skip,
+     K2: W=256, 2 images x 131072 points, from the binner's tables, each
+     accumulation, coverage on points at the radius from the edges of the
+     warps' rectangles, and no slot gather in `splat()` by the profiler;
+     K3: pop 16, 32x32, (Cin, Cout) = (160, 80), (160, 160) and, dilation
+     2, (80, 80), bf16 (the resident route; 20 repeated calls
+     bit-identical, one device kernel a call by the profiler; the build
+     with the other cluster size too, built in the phase) and float32, and
+     the streamed route at 48x48; K4: pop 16, 32x32, F=80, with and without the skip,
      and 4 images of 16x16 and 17 of 32x32 (two rounds of one launch);
      K1, K3 and K4 also on masks with every tap on and on masks that are 0
      on whole 128-position tiles, the two edges of the (tile, tap) skip;
@@ -361,7 +366,69 @@ def _k2_inputs(seed=0, C=3, W=256, N=65536 * 2):
             torch.as_tensor(vld, device=DEVICE))
 
 
+def covered_pairs(points, slot_idx, slot_valid, W, cfg, group=64):
+    """Pixel x slot pairs whose slot covers the pixel (distance < radius),
+    counted on the binner's tables: the pairs the blend's function must
+    compute (every other pair changes nothing)."""
+    import torch
+    from pixelsynth_tpu_torch.ops.splat import gather_slots, tile_origins
+
+    B = points.shape[0]
+    TS = cfg.tile_size
+    spts, _, svld = gather_slots(points, points[..., :1].contiguous(), slot_idx,
+                                 slot_valid)
+    org = tile_origins(W, TS, points.device).repeat(B, 1)
+    pix = torch.arange(TS * TS, device=points.device)
+    py, px = (pix // TS).float(), (pix % TS).float()
+    n = 0
+    for g0 in range(0, spts.shape[0], group):
+        p, v, o = spts[g0:g0 + group], svld[g0:g0 + group], org[g0:g0 + group]
+        dx = (px[None] + o[:, 1:2])[:, :, None] - p[:, None, :, 0]
+        dy = (py[None] + o[:, 0:1])[:, :, None] - p[:, None, :, 1]
+        n += int(((dx * dx + dy * dy < cfg.radius ** 2) & v[:, None, :]).sum())
+    return n
+
+
+def _radius_edge_points(W=512, seed=7):
+    """Points at distance r, r - 1 ulp and r + 1 ulp (of the coordinate)
+    from a pixel centre on an edge of a warp's 4 x 8 rectangle of K2's
+    16x16 tiles, straight out from the edge (so the distance is one exact
+    difference, whichever way a product is rounded): one point in every
+    other tile of every other tile row, so no other point reaches its
+    pixel, cycling through the 8 rectangles, the 4 sides and the 3
+    distances.  -> (1, N, 3) on the card, for a W x W image."""
+    import numpy as np
+    import torch
+    from pixelsynth_tpu_torch.config import SplatConfig
+
+    cfg = SplatConfig()
+    r, TS = np.float32(cfg.radius), cfg.tile_size
+    rng = np.random.default_rng(seed)
+    pts = []
+    for k, (ty, tx) in enumerate((ty, tx) for ty in range(0, W // TS, 2)
+                                 for tx in range(0, W // TS, 2)):
+        rect, side, step = k % 8, (k // 8) % 4, (k // 32) % 3 - 1
+        r_lo, c_lo = ty * TS + (rect // 2) * 4, tx * TS + (rect % 2) * 8
+        row = np.float32(rng.integers(r_lo, r_lo + 4))
+        col = np.float32(rng.integers(c_lo, c_lo + 8))
+        x, y = [(np.float32(c_lo) - r, row), (np.float32(c_lo + 7) + r, row),
+                (col, np.float32(r_lo) - r), (col, np.float32(r_lo + 3) + r)][side]
+        # step +1 moves the point one ulp towards the rectangle, -1 away
+        if step:
+            toward = np.float32(np.inf if (side in (0, 2)) == (step > 0) else -np.inf)
+            if side < 2:
+                x = np.nextafter(x, toward)
+            else:
+                y = np.nextafter(y, toward)
+        pts.append((x, y, rng.uniform(0.5, 10.0)))
+    return torch.as_tensor(np.asarray(pts, np.float32)[None], device=DEVICE)
+
+
 def phase_k2(report, W=256, N=65536 * 2):
+    """K2 from the binner's tables (the gather inside the kernel) against
+    its plain version (`gather_slots` + `blend_tiles_plain`) in every
+    accumulation; coverage on points at the radius from the edges of the
+    warps' rectangles; `splat()` gathers no slots outside the kernel."""
     import dataclasses
     import torch
     from pixelsynth_tpu_torch.config import SplatConfig
@@ -369,20 +436,17 @@ def phase_k2(report, W=256, N=65536 * 2):
 
     W, pts, fts, vld = _k2_inputs(W=W, N=N)
     cfg = SplatConfig()
-    B = pts.shape[0]
     slot_idx, slot_valid, counts = K2._bin_points_batched(pts, vld, W, cfg,
                                                           return_counts=True)
     over = torch.clamp(counts - cfg.max_points_per_tile, min=0)
     log(f"[K2] binning: max entries per tile {int(counts.max())}, "
         f"M={cfg.max_points_per_tile}, tiles over capacity {int((over > 0).sum())}, "
         f"entries dropped {int(over.sum())}")
-    spts, sfts, svld = K2.gather_slots(pts, fts, slot_idx, slot_valid)
-    org = K2.tile_origins(W, cfg.tile_size, pts.device).repeat(B, 1)
     errs = {}
     for acc in ("alphacomposite", "wsum", "wsumnorm"):
         c = dataclasses.replace(cfg, accumulation=acc)
-        ok, ck = K2.blend_tiles(spts, sfts, svld, org, W, c)
-        op, cp = K2.blend_tiles_plain(spts, sfts, svld, org, W, c)
+        ok, ck = K2.blend_slots(pts, fts, slot_idx, slot_valid, W, c)
+        op, cp = K2.blend_slots_plain(pts, fts, slot_idx, slot_valid, W, c)
         torch.cuda.synchronize()
         err = float((ok - op).abs().max())
         # fp32 both sides; the kernel folds the NDC scale into one multiply
@@ -394,19 +458,52 @@ def phase_k2(report, W=256, N=65536 * 2):
             f"allclose={close} coverage identical={same_cov}")
         if not (close and same_cov):
             raise AssertionError(f"K2 disagrees with its plain version ({acc})")
-    ms = time_ms(lambda: K2.blend_tiles(spts, sfts, svld, org, W, cfg))
-    pms = time_ms(lambda: K2.blend_tiles_plain(spts, sfts, svld, org, W, cfg))
-    P = cfg.tile_size ** 2
-    pairs = float(svld.sum()) * P          # pixel x valid-slot pairs
-    flops = pairs * 6                      # 2 sub, 2 mul-add, compare, count
-    T, M = svld.shape
-    by = T * M * (3 * 4 + 3 * 4 + 1) + T * P * (3 * 4 + 1)
+    # on the radius: the culling test must keep every slot that covers
+    ep = _radius_edge_points()
+    ef = torch.randn((1, ep.shape[1], 3), device=DEVICE,
+                     generator=torch.Generator(device=DEVICE).manual_seed(8))
+    ei, ev = K2._bin_points_batched(ep, torch.ones(ep.shape[:2], dtype=torch.bool,
+                                                   device=DEVICE), 512, cfg)
+    eo, ec = K2.blend_slots(ep, ef, ei, ev, 512, cfg)
+    po, pc = K2.blend_slots_plain(ep, ef, ei, ev, 512, cfg)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(ec, pc))
+    close = bool(torch.allclose(eo, po, atol=5e-4, rtol=1e-3))
+    log(f"[K2] {ep.shape[1]} points at r and r +- 1 ulp from the warp rectangles' "
+        f"edges: coverage identical to the plain version's {same} ({int(pc.sum())} "
+        f"of {pc.numel()} pixels covered), allclose={close}")
+    if not (same and close):
+        raise AssertionError("K2 disagrees with its plain version on the radius")
+    # the splat on the card: no slot gather outside the kernel
+    kernels, _ = device_kernels(lambda: K2.splat(pts, fts, vld, W=W, cfg=cfg), reps=3)
+    gathers = {k: v for k, v in kernels.items() if "gather" in k.lower()}
+    log(f"[K2] splat(): {sum(kernels.values()) / 3:.1f} device kernels a call, "
+        f"gather kernels {json.dumps(gathers)}")
+    if gathers:
+        raise AssertionError(f"splat() still gathers slots outside K2: {gathers}")
+    ms = time_ms(lambda: K2.blend_slots(pts, fts, slot_idx, slot_valid, W, cfg))
+    pms = time_ms(lambda: K2.blend_slots_plain(pts, fts, slot_idx, slot_valid, W, cfg),
+                  reps=3, rounds=3)
+    # the function's own work: the valid flags, each valid slot's index, the
+    # points and features each read once, the image and coverage written
+    # once; ~20 fp32 flops a covered pixel x slot pair (distance 5, alpha 7,
+    # 2 a feature, transmittance and mass 3; an uncovered pair changes
+    # nothing)
+    B, nT, M = slot_valid.shape
+    C = fts.shape[-1]
+    n_valid = int(slot_valid.sum())
+    pairs = covered_pairs(pts, slot_idx, slot_valid, W, cfg)
+    flops = pairs * (15 + 2 * C)
+    by = (B * nT * M + n_valid * 8 + (pts.numel() + fts.numel()) * 4
+          + B * W * W * (4 * C + 1))
     t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, by / PEAK_BYTES * 1e3
     report["splat_blend"] = _entry(
         "splat_blend", "splat_blend.cu", "pixelsynth_tpu/ops/splat_pallas.py:40",
         max(errs.values()), ms, pms, t_ops, t_bytes)
-    log(f"[K2] splat_blend: {ms:.3f} ms kernel, {pms:.3f} ms plain, "
-        f"{pairs / 1e6:.1f} M pixel x slot pairs, bound {max(t_ops, t_bytes):.4f} ms")
+    log(f"[K2] splat_blend: {ms:.4f} ms kernel, {pms:.3f} ms plain; {n_valid} valid "
+        f"slots, {pairs / 1e6:.2f} M covered pixel x slot pairs of "
+        f"{n_valid * cfg.tile_size ** 2 / 1e6:.1f} M, {flops / 1e9:.3f} GFLOP, "
+        f"{by / 1e6:.1f} MB, bound {max(t_ops, t_bytes):.4f} ms")
 
 
 def _uniform(gen, shape, bound):
@@ -415,61 +512,96 @@ def _uniform(gen, shape, bound):
     return ((torch.rand(shape, generator=gen) * 2 - 1) * bound).to(DEVICE)
 
 
-def phase_k3(report, B=16, side=32, Fc=80):
-    """K3 at the trunk's three conv shapes, on the masks of `_half_grid`:
-    the bf16 kernel and the float32 kernel against the plain version."""
+def _k3_check(tag, x, pm, w, b, dil, tol=1e-4):
+    """One bf16 K3 call against the plain version: max |kernel - plain|.
+    Both sides round the operands to bf16 and sum in f32: only the
+    summation order differs.  So 1e-4 holds the indexing itself, far inside
+    the 2% of the output's range that K1 and K4 (which round activations
+    between layers) are given."""
     import torch
     from pixelsynth_tpu_torch.ops import masked_conv_kernel as K3
-    from pixelsynth_tpu_torch.ops.conv_pack import prepare_taps, skipped_share
+    from pixelsynth_tpu_torch.ops.conv_pack import skipped_share
+
+    out_k = K3.locally_masked_conv2d_kernel(x, pm, w, b, dilation=dil)
+    out_p = K3.locally_masked_conv2d_plain(x, pm, w, b, dilation=dil)
+    torch.cuda.synchronize()
+    err = float((out_k - out_p).abs().max())
+    log(f"[K3] {tag} (steps skipped {skipped_share(pm.taps):.3f}): bf16 "
+        f"max|kernel-plain| {err:.3e} (max|ref| {float(out_p.abs().max()):.2f}, "
+        f"atol {tol:.0e})")
+    if not err <= tol:
+        raise AssertionError(f"K3 disagrees with its plain version ({tag})")
+    return err
+
+
+def _k3_shapes(Fc):
+    """(Cin, Cout, dilation, which mask, launches per module-path forward)
+    of the trunk's three masked convs."""
+    return [(2 * Fc, Fc, 1, 1, 14), (2 * Fc, 2 * Fc, 1, 1, 14), (Fc, Fc, 2, 2, 4)]
+
+
+def phase_k3(report, B=16, side=32, Fc=80, repeats=20):
+    """K3 at the trunk's three conv shapes, on the masks of `_half_grid`
+    and on the all-on and tiles-off cases: the bf16 kernel (the resident
+    route) and the float32 kernel against the plain version; `repeats`
+    back-to-back calls bit-identical; one device kernel a call (no cast);
+    the streamed route on a grid whose rows exceed the resident region;
+    the build with the other cluster size.  Timed."""
+    import torch
+    from pixelsynth_tpu_torch.ops import _cuda
+    from pixelsynth_tpu_torch.ops import masked_conv_kernel as K3
+    from pixelsynth_tpu_torch.ops.conv_pack import prepare_taps
     from pixelsynth_tpu_torch.ops.lmconv_fused import fold_boundary_masks
 
+    cluster = K3._lib().masked_conv_cluster()
     _, masks, _ = _half_grid(side)
     masks = masks.repeat(B, 1, 1, 1)
     cases = _mask_cases(masks)
     gen = torch.Generator().manual_seed(3)
-    # (Cin, Cout, dilation, which mask, launches per module-path forward)
-    shapes = [(2 * Fc, Fc, 1, 1, 14), (2 * Fc, 2 * Fc, 1, 1, 14), (Fc, Fc, 2, 2, 4)]
     tot = {"ms": 0.0, "pms": 0.0, "ops": 0.0, "bytes": 0.0, "n": 0}
     worst = 0.0
-    for cin, cout, dil, mi, n_fwd in shapes:
+    timed = []
+    for cin, cout, dil, mi, n_fwd in _k3_shapes(Fc):
         x = torch.randn((B, side, side, cin), generator=gen).to(DEVICE)
         bound = 1.0 / (9 * cin) ** 0.5
         w = _uniform(gen, (9, cin, cout), bound)
         b = _uniform(gen, (cout,), bound)
         pm = K3.prepare_mask(masks[:, mi])
         kw = dict(dilation=dil)
-        out_k = K3.locally_masked_conv2d_kernel(x, pm, w, b, compute_dtype="bfloat16", **kw)
-        out_p = K3.locally_masked_conv2d_plain(x, pm, w, b, compute_dtype="bfloat16", **kw)
+        route = K3.k3_route(side, side, cin, dil, cluster)
+        tag = f"({cin},{cout}) d{dil} {route}"
+        if route != "resident":
+            raise AssertionError(f"K3 {tag}: the main path's shape left the resident route")
+        worst = max(worst, _k3_check(f"{tag}, masks 'order'", x, pm, w, b, dil))
         f32_k = K3.locally_masked_conv2d_kernel(x, pm, w, b, compute_dtype="float32", **kw)
         f32_p = K3.locally_masked_conv2d_plain(x, pm, w, b, compute_dtype="float32", **kw)
         torch.cuda.synchronize()
-        err = float((out_k - out_p).abs().max())
         err32 = float((f32_k - f32_p).abs().max())
-        ref = float(out_p.abs().max())
-        # Both sides round the operands to the compute dtype and sum in f32:
-        # only the summation order differs, in bf16 as in f32.  So 1e-4
-        # holds the indexing itself in both, far inside the 2% of the
-        # output's range that K1 and K4 (which round activations between
-        # layers) are given.
-        tol = 1e-4
-        log(f"[K3] ({cin},{cout}) d{dil}: bf16 max|kernel-plain| {err:.3e} "
-            f"(max|ref| {ref:.2f}, atol {tol:.0e}); f32 {err32:.3e} (atol 1e-4)")
-        if not (err <= tol and err32 <= 1e-4):
-            raise AssertionError(f"K3 ({cin},{cout}) disagrees with its plain version")
-        worst = max(worst, err)
+        log(f"[K3] {tag}: f32 max|kernel-plain| {err32:.3e} (atol 1e-4)")
+        if not err32 <= 1e-4:
+            raise AssertionError(f"K3 {tag} float32 disagrees with its plain version")
         for case in ("all on", "tiles off"):
-            pmc = K3.prepare_mask(cases[case][:, mi])
-            e = float((K3.locally_masked_conv2d_kernel(x, pmc, w, b, **kw)
-                       - K3.locally_masked_conv2d_plain(x, pmc, w, b, **kw)).abs().max())
-            log(f"[K3] ({cin},{cout}) d{dil}, masks {case!r} (steps skipped "
-                f"{skipped_share(pmc.taps):.3f}): bf16 max|kernel-plain| {e:.3e}")
-            if not e <= tol:
-                raise AssertionError(f"K3 ({cin},{cout}) disagrees, masks {case!r}")
-            worst = max(worst, e)
-        wb = w.to(torch.bfloat16)
+            worst = max(worst, _k3_check(f"{tag}, masks {case!r}", x,
+                                         K3.prepare_mask(cases[case][:, mi]), w, b, dil))
         packed = prepare_taps(w, K3.kernel_width(cin, cout))   # once, as a model does
-        ms = time_ms(lambda: K3.locally_masked_conv2d_kernel(
-            x, pm, packed, b, compute_dtype="bfloat16", **kw))
+        run = lambda: K3.locally_masked_conv2d_kernel(x, pm, packed, b, **kw)
+        first = run()
+        outs = [run() for _ in range(repeats)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(o, first) for o in outs)
+        kernels, dev_us = device_kernels(run)
+        n = sum(kernels.values())
+        log(f"[K3] {tag}: {repeats} back-to-back calls bit-identical {same}; device "
+            f"kernels of 10 calls {json.dumps(kernels)}")
+        if not same:
+            raise AssertionError(f"K3 {tag}: calls on the same inputs differ")
+        # one kernel name and at most one launch a call: a cast would be a
+        # second name.  The profiler may miss launches at the start of its
+        # window (8 and 9 of 10 seen for this short kernel), never add one.
+        if len(kernels) != 1 or not 1 <= n <= 10:
+            raise AssertionError(f"K3 {tag}: 10 calls ran {json.dumps(kernels)}, "
+                                 "expected one device kernel a call")
+        ms = time_ms(run)
         ms32 = time_ms(lambda: K3.locally_masked_conv2d_kernel(
             x, pm, w, b, compute_dtype="float32", **kw), reps=3, rounds=3)
         pms = time_ms(lambda: K3.locally_masked_conv2d_plain(
@@ -477,16 +609,52 @@ def phase_k3(report, B=16, side=32, Fc=80):
         # active (position, tap) pairs: mask on and the tap inside the image
         pairs = float(fold_boundary_masks(masks[:, mi], side, side, 3, dil).sum())
         flops = 2.0 * pairs * cin * cout
-        # the timed call: x, mask, bias and out in f32, the weights in bf16
-        by = ((x.numel() + pm.rows.numel() + b.numel() + out_k.numel()) * 4
-              + wb.numel() * wb.element_size())
+        # the timed call: x (read as f32), mask, bias and out in f32, the
+        # weights in bf16
+        by = (x.numel() + pm.rows.numel() + b.numel() + first.numel()) * 4 + w.numel() * 2
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, by / PEAK_BYTES * 1e3
-        log(f"[K3] ({cin},{cout}) d{dil}: {ms:.4f} ms bf16 kernel, {ms32:.4f} ms f32 "
-            f"kernel, {pms:.3f} ms plain, {flops / 1e9:.2f} GFLOP needed, "
-            f"{by / 1e6:.1f} MB, bound {max(t_ops, t_bytes):.4f} ms")
+        log(f"[K3] {tag}: {ms:.4f} ms bf16 kernel (device {dev_us:.1f} us, host "
+            f"{host_us(run):.1f} us a call), {ms32:.4f} ms f32 kernel, {pms:.3f} ms "
+            f"plain, {flops / 1e9:.2f} GFLOP needed, {by / 1e6:.1f} MB, bound "
+            f"{max(t_ops, t_bytes):.4f} ms")
         for k, v in (("ms", ms), ("pms", pms), ("ops", t_ops), ("bytes", t_bytes)):
             tot[k] += n_fwd * v
         tot["n"] += n_fwd
+        timed.append((tag, x, pm, w, b, dil))
+    # the streamed route: a grid whose rows and halo exceed the region
+    s_side, s_b = 48, 2
+    _, s_masks, _ = _half_grid(s_side)
+    s_masks = s_masks.repeat(s_b, 1, 1, 1)
+    for cin, cout in ((2 * Fc, Fc), (2 * Fc, 2 * Fc)):
+        route = K3.k3_route(s_side, s_side, cin, 1, cluster)
+        if route != "streamed":
+            raise AssertionError(f"K3 at {s_side}x{s_side}, Cin {cin}: route {route}")
+        x = torch.randn((s_b, s_side, s_side, cin), generator=gen).to(DEVICE)
+        w = _uniform(gen, (9, cin, cout), 1.0 / (9 * cin) ** 0.5)
+        b = _uniform(gen, (cout,), 0.03)
+        before = K3.LAUNCHES["masked_conv_streamed"]
+        worst = max(worst, _k3_check(f"({cin},{cout}) d1 at {s_b} x {s_side}x{s_side} "
+                                     f"streamed", x, K3.prepare_mask(s_masks[:, 1]),
+                                     w, b, 1))
+        if K3.LAUNCHES["masked_conv_streamed"] != before + 1:
+            raise AssertionError("the streamed K3 shape did not launch the streamed route")
+    # the build with the other cluster size, on the main path's shapes
+    other = 3 - cluster
+    default_lib = _cuda._libs["masked_conv"]
+    _cuda._libs["masked_conv"] = _cuda.load_variant("masked_conv", [f"K3_CLUSTER={other}"])
+    try:
+        if K3._lib().masked_conv_cluster() != other:
+            raise AssertionError("the K3 variant build has the wrong cluster size")
+        for tag, x, pm, w, b, dil in timed:
+            worst = max(worst, _k3_check(f"{tag}, clusters of {other}", x, pm, w, b, dil))
+            cin, cout = w.shape[1], w.shape[2]
+            packed = prepare_taps(w, K3.kernel_width(cin, cout))
+            run = lambda: K3.locally_masked_conv2d_kernel(x, pm, packed, b, dilation=dil)
+            _, dev_us = device_kernels(run)
+            log(f"[K3] {tag}, clusters of {other}: {time_ms(run):.4f} ms, device "
+                f"{dev_us:.1f} us a call")
+    finally:
+        _cuda._libs["masked_conv"] = default_lib
     # one entry: the mean over the 32 launches of a module-path forward
     # (14 + 14 + 4 of the three shapes), bound taken shape by shape
     n = tot["n"]

@@ -1,8 +1,10 @@
 // One locally-masked conv layer on a 128-position tile, for Hopper
-// (sm_90a): the body shared by K3 (masked_conv.cu: the stand-alone masked
-// conv) and K4 (gated_resnet.cu: both convs of a gated resnet in one
-// cooperative launch).  K1's persistent pass (lmconv_pass.cuh) has a body
-// of its own and shares the helpers, `Layer` and the epilogue.
+// (sm_90a): the body of K4 (gated_resnet.cu: both convs of a gated resnet
+// in one cooperative launch) and of K3's streamed route (masked_conv.cu:
+// the stand-alone masked conv on grids whose rows and halo exceed the
+// resident region).  K1's persistent pass (lmconv_pass.cuh) and K3's
+// resident route have a body of their own (resident_rows.cuh) and share
+// the helpers, `Layer` and the epilogue.
 //
 // A block owns TP=128 flat positions of one candidate and ALL output
 // channels, so PONO (a reduction over channels) and the gate fuse into the
@@ -20,7 +22,9 @@
 //     operand rows come by cp.async, 16 bytes a thread, zero-filled where
 //     the row's on/off bit for the tap is 0 -- mask 0, or a source outside
 //     [0, HW) or (raw masks, `guard_image`) outside the image; such a row
-//     is never read, since 0 * NaN = NaN.  The bit of every (row, tap) is
+//     is never read, since 0 * NaN = NaN.  With f32 operand rows (A32, K3)
+//     the producer loads them and rounds them to bf16 (round to nearest
+//     even) into the stage itself.  The bit of every (row, tap) is
 //     computed once a layer, one row a producer thread.  The step's
 //     weights arrive by ONE bulk copy (cp.async.bulk, no tensor map): the
 //     host lays them out once as the exact shared-memory image of each
@@ -505,9 +509,13 @@ __device__ __forceinline__ void epilogue(const Layer& L, int HW, int b, int p0,
 // its own count `it` of the ring steps taken so far (0 at the start, kept
 // across the layers of one kernel).  SETREG: move registers from the
 // producer to the consumers (only where the roles never reconverge).
-template <int F, bool WIDE, bool SETREG>
+// A32: the operand rows are a32 (B, HW, L.K) f32, rounded to bf16 by the
+// producer, instead of L.a (K3's streamed route; `Layer` stays as K1 and
+// K4 compile it).
+template <int F, bool WIDE, bool SETREG, bool A32 = false>
 __device__ void layer_body(const Layer& L, int HW, int b, int p0,
-                           unsigned char* smem, uint32_t& it) {
+                           unsigned char* smem, uint32_t& it,
+                           const float* a32 = nullptr) {
   constexpr int NOUT = WIDE ? 2 * F : F;
   constexpr int VPR = F / 8;                      // 16-byte vectors a row
   constexpr uint32_t A_BYTES = (uint32_t)a_bytes(F);
@@ -554,7 +562,7 @@ __device__ void layer_body(const Layer& L, int HW, int b, int p0,
     // the producer's own barrier: every row's bits are written
     asm volatile("bar.sync 1, %0;\n" ::"n"(NPROD) : "memory");
 
-    const bf16* src = L.a + b * L.a_bstride;
+    const bf16* src = A32 ? nullptr : L.a + b * L.a_bstride;
     for (int t = 0; t < 9; ++t) {
       if (!((taps >> t) & 1u)) continue;
       const int shift = L.shifts[t];
@@ -570,18 +578,37 @@ __device__ void layer_body(const Layer& L, int HW, int b, int p0,
                     full);
         }
 #ifndef LMK_NO_COPY
+        if constexpr (A32) {
+          const float* src32 = a32 + (size_t)b * HW * L.K;
+          unsigned char* a_ptr = smem + s * STAGE;
 #pragma unroll
-        for (int i = 0; i < VPR; ++i) {   // TP * VPR vectors on NPROD = TP threads
-          const int idx = tid + NPROD * i;
-          const int r = idx / VPR;
-          const int v = idx - r * VPR;
-          const bool ok = (ring.row_on[r] >> t) & 1u;
-          const bf16* g =
-              ok ? src + (size_t)(p0 + r + shift) * L.K + kc * F + v * 8 : src;
-          cp_async16(a_addr + (r >> 3) * 128 + (r & 7) * 16 + v * A_LBO, g, ok);
+          for (int i = 0; i < VPR; ++i) {
+            const int idx = tid + NPROD * i;
+            const int r = idx / VPR;
+            const int v = idx - r * VPR;
+            float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+            if ((ring.row_on[r] >> t) & 1u)
+              load8(src32 + (size_t)(p0 + r + shift) * L.K + kc * F + v * 8, x);
+            *reinterpret_cast<uint4*>(a_ptr + (r >> 3) * 128 + (r & 7) * 16 + v * A_LBO) =
+                make_uint4(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]),
+                           pack_bf16(x[4], x[5]), pack_bf16(x[6], x[7]));
+          }
+          fence_async_shared();
+        } else {
+#pragma unroll
+          for (int i = 0; i < VPR; ++i) {   // TP * VPR vectors on NPROD = TP threads
+            const int idx = tid + NPROD * i;
+            const int r = idx / VPR;
+            const int v = idx - r * VPR;
+            const bool ok = (ring.row_on[r] >> t) & 1u;
+            const bf16* g =
+                ok ? src + (size_t)(p0 + r + shift) * L.K + kc * F + v * 8 : src;
+            cp_async16(a_addr + (r >> 3) * 128 + (r & 7) * 16 + v * A_LBO, g, ok);
+          }
         }
 #endif
-        cp_async_arrive(full);
+        if constexpr (A32) mbar_arrive(full);
+        else cp_async_arrive(full);
         ++it;
       }
     }
@@ -679,64 +706,6 @@ __device__ void layer_body(const Layer& L, int HW, int b, int p0,
 #ifndef LMK_NO_EPILOGUE
     epilogue<F, WIDE>(L, HW, b, p0, has_skip, acc, sacc);
 #endif
-  }
-}
-
-// One launch of a layer: a block per TP positions of one candidate.
-template <int F, bool WIDE>
-__global__ void __launch_bounds__(NTHREADS, 1)
-layer_kernel(const __grid_constant__ Layer L, int HW) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tiles = HW / TP;
-  const int b = blockIdx.x / tiles;
-  const int p0 = (blockIdx.x - b * tiles) * TP;
-  ring_init<F>(smem);
-  uint32_t it = 0;
-  layer_body<F, WIDE, true>(L, HW, b, p0, smem, it);
-}
-
-// `static`: each library that includes this header has its own copy of the
-// kernel, so it needs its own flag too (a local static of a function with
-// external linkage is one object across every library loaded).
-template <int F, bool WIDE>
-static cudaError_t launch_layer_as(const Layer& L, int B, int HW,
-                                   cudaStream_t st) {
-  constexpr size_t smem = smem_bytes(F);
-  // the shared-memory attribute is set once per instantiation and device
-  static int attr_dev = -1;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev != attr_dev) {
-    e = cudaFuncSetAttribute(
-        layer_kernel<F, WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-    attr_dev = dev;
-  }
-  layer_kernel<F, WIDE><<<B * HW / TP, NTHREADS, smem, st>>>(L, HW);
-  return cudaGetLastError();
-}
-
-template <int F>
-cudaError_t launch_layer_of(const Layer& L, int B, int HW, cudaStream_t st) {
-  return L.nout == 2 * F ? launch_layer_as<F, true>(L, B, HW, st)
-                         : launch_layer_as<F, false>(L, B, HW, st);
-}
-
-// Launch layer L of width F (a multiple of 16 up to 80; L.nout is F or 2F)
-// on B candidates of HW positions, HW a multiple of TP.
-inline cudaError_t launch_layer(const Layer& L, int B, int HW, int F,
-                                cudaStream_t st) {
-  if (HW % TP != 0 || (L.nout != F && L.nout != 2 * F))
-    return cudaErrorInvalidValue;
-  switch (F) {
-    case 16: return launch_layer_of<16>(L, B, HW, st);
-    case 32: return launch_layer_of<32>(L, B, HW, st);
-    case 48: return launch_layer_of<48>(L, B, HW, st);
-    case 64: return launch_layer_of<64>(L, B, HW, st);
-    case 80: return launch_layer_of<80>(L, B, HW, st);
-    default: return cudaErrorInvalidValue;
   }
 }
 

@@ -1,7 +1,10 @@
 // The persistent pass of K1 (csrc/lmconv_fused.cu) for Hopper (sm_90a):
 // every masked conv layer of the fused PixelCNN trunk's up or down pass in
-// ONE launch.  K3 and K4 keep the per-layer body of lmconv_layer.cuh; this
-// path shares its helpers, its `Layer` description and its epilogue.
+// ONE launch.  K4 keeps the per-layer body of lmconv_layer.cuh; this path
+// shares its helpers, its `Layer` description and its epilogue, and shares
+// with K3's resident route (masked_conv.cu) the resident operand rows, the
+// row bits, the weight ring and the register-operand tap loop
+// (resident_rows.cuh).
 //
 // What it changes, and why (PERF.md has the numbers):
 //   * one launch a pass.  The grid holds as many groups of HW/128 blocks as
@@ -31,20 +34,13 @@
 //     each stage then waits for both blocks' consumers and producers, and
 //     on the H100 the pass ran 20% slower so (PERF.md); the plain build
 //     has clusters of 1, each block copying all of every step;
-//   * operand rows once a tile.  A layer's operand rows, the tile's 128
-//     and the halo each side (max|s_t| rows), lie in a resident region,
-//     row r at r * (2K + 16) bytes: the 16 spare bytes put the 8 rows of an
-//     ldmatrix phase on 8 different bank quads at every width.  The tile's
-//     own rows are written there by the layer before (its epilogue, or
-//     phase 0), beside its stores to device memory; the producer copies
-//     only the halo, once the neighbours' counters allow.  The ring
-//     carries weights only.  A consumer warp builds each tap's A fragment
-//     with ldmatrix at the tap's row offset, zeroes in registers the rows
-//     whose (row, tap) bit is off (mask 0 or a source outside [0, HW)),
-//     and multiplies with wgmma taking A from registers (WgmmaRS);
-//     A ring step carries one K slice of a tap (the gated second conv, the
-//     dilated conv) or, where both fit a stage, a tap's two (the gated
-//     first conv), so that a step is never much shorter than its copy;
+//   * operand rows once a tile (resident_rows.cuh).  A layer's operand
+//     rows, the tile's 128 and the halo each side, lie in the resident
+//     region.  The tile's own rows are written there by the layer before
+//     (its epilogue, or phase 0), beside its stores to device memory; the
+//     producer copies only the halo, once the neighbours' counters allow.
+//     The ring carries weights only, and the consumers take each tap's
+//     rows with ldmatrix into wgmma's register operand (`rr::tap_products`);
 //   * the nin skip's operand (elu halves of the popped stack entry, the
 //     block's own rows) goes from device memory straight into A fragments:
 //     it needs no shared memory and no producer work;
@@ -72,7 +68,7 @@
 
 #pragma once
 
-#include "lmconv_layer.cuh"
+#include "resident_rows.cuh"
 
 namespace lmk {
 namespace pass {
@@ -80,18 +76,17 @@ namespace pass {
 constexpr int NR_MAX = 4;
 constexpr int MAXL = 6 * NR_MAX + 6;          // the down pass's layers at nr = NR_MAX
 constexpr int STAMPS = 256;                   // stamp slots a block (LMK_STAMPS)
-constexpr size_t A_REGION = 72 * 1024;        // resident operand rows
+using rr::A_REGION;
+using rr::halo_of;
+using rr::pitch;
+using rr::rows_cap;
+using rr::wstage_bytes;
 #ifdef LMK_MULTICAST
 constexpr int CLUSTER = 2;
 #else
 constexpr int CLUSTER = 1;
 #endif
 
-__host__ __device__ constexpr int pitch(int K) { return 2 * K + 16; }
-__host__ __device__ constexpr int rows_cap(int K) { return (int)(A_REGION / pitch(K)); }
-__host__ __device__ constexpr size_t wstage_bytes(int F) {
-  return (size_t)F * 2 * F * sizeof(bf16);
-}
 __host__ __device__ constexpr size_t ring_bytes(int F) { return STAGES * wstage_bytes(F); }
 // the block's f32 activation, 128 rows of F + 4 floats
 __host__ __device__ constexpr size_t u_bytes(int F) { return (size_t)TP * (F + 4) * 4; }
@@ -220,71 +215,6 @@ __device__ inline int build_layers(const Args& a, Layer* out) {
   return n;
 }
 
-__host__ __device__ inline int halo_of(const int* shifts) {
-  int h = 0;
-  for (int t = 0; t < 9; ++t) {
-    const int s = shifts[t] < 0 ? -shifts[t] : shifts[t];
-    if (s > h) h = s;
-  }
-  return h;
-}
-
-// d += A @ the (16 KK x N) weights of one K slice at shared address w
-// (packed image, ops/conv_pack.py), A given as KK k16 fragments.
-template <int N, int KK>
-__device__ __forceinline__ void mma_slice(float (&d)[N / 2], uint32_t (&fr)[KK][4],
-                                          uint32_t w) {
-  constexpr uint32_t lbo = (N / 8) * 128;
-  const uint64_t db = make_desc(w, lbo, 128);
-#pragma unroll
-  for (int kk = 0; kk < KK; ++kk)
-    WgmmaRS<N>::mma(d, fr[kk], db + (uint64_t)((kk * 2 * lbo) >> 4));
-}
-
-// K slices of F that one ring step carries: two where both fit a stage
-// (the narrow K = 2F conv: a tap's whole weights), else one.  The nin
-// skip's two slices are one step too.
-__device__ __forceinline__ int slices_per_step(const Layer& L, int F) {
-  return L.nout == F && L.K == 2 * F ? 2 : 1;
-}
-
-// ------------------------------------------------------------------ cluster
-
-__device__ __forceinline__ void cluster_sync() {
-  if constexpr (CLUSTER > 1)
-    asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::
-                     : "memory");
-}
-// The shared::cluster address of `addr` (a shared::cta address of this
-// block) in the block of cluster rank `rank`.
-__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, uint32_t rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
-  return r;
-}
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t cluster_addr) {
-  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
-                   cluster_addr)
-               : "memory");
-}
-// `bytes` from src into this block's and its peer's shared memory at `dst`
-// (the same offset in both), counted on each block's barrier at `bar`.
-__device__ __forceinline__ void bulk_copy_multicast(uint32_t dst, const void* src,
-                                                    uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar), "h"((uint16_t)0x3)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
 __device__ __forceinline__ unsigned long long ld_acquire(const unsigned long long* p) {
   unsigned long long v;
   asm volatile("ld.acquire.gpu.global.u64 %0, [%1];\n" : "=l"(v) : "l"(p) : "memory");
@@ -331,22 +261,7 @@ __device__ __forceinline__ Shared shared_of(unsigned char* smem) {
   return s;
 }
 
-// Taps with any position on in tile `tile` of candidate b (all if no table).
-__device__ __forceinline__ uint32_t tile_taps(const Layer& L, int b, int tile, int tiles) {
-  if (L.tile_taps == nullptr) return 0x1ffu;
-  const int* tt = L.tile_taps + ((size_t)b * tiles + tile) * 9;
-  uint32_t m = 0;
-#pragma unroll
-  for (int t = 0; t < 9; ++t) m |= (tt[t] != 0 ? 1u : 0u) << t;
-  return m;
-}
-// The steps the cluster walks: the union of its blocks' tiles' taps.
-__device__ __forceinline__ uint32_t cluster_taps(const Layer& L, int b, int tile,
-                                                 int tiles) {
-  uint32_t m = tile_taps(L, b, tile, tiles);
-  if constexpr (CLUSTER > 1) m |= tile_taps(L, b, tile ^ 1, tiles);
-  return m;
-}
+__device__ __forceinline__ rr::WRing wring(const Shared& sh) { return rr::WRing{sh.ring, sh.full}; }
 
 // ------------------------------------------------------------------ stages
 // Stage j of a round: 0 is phase 0, l + 1 is layer l.
@@ -424,10 +339,10 @@ __device__ void produce(const Args& a, const Shared& sh, int groups, int grp, in
     if (b >= a.B) break;
     for (int l = 0; l < nl; ++l, ++lc) {
       const Layer& L = sh.layers[l];
-      const uint32_t taps = cluster_taps(L, b, tile, tiles);
+      const uint32_t taps = rr::cluster_taps<CLUSTER>(L, b, tile, tiles);
       const int nk = L.K / F;
       const int nout = L.nout;
-      const int kps = slices_per_step(L, F);
+      const int kps = rr::slices_per_step(L, F);
       const int n_main = __popc(taps) * (nk / kps);
       const int n_steps = n_main + (L.skip != nullptr ? 1 : 0);
       // step i's weights: (tap, K slices) steps in tap order, then the skip's
@@ -435,33 +350,12 @@ __device__ void produce(const Args& a, const Shared& sh, int groups, int grp, in
         const bf16* src;
         uint32_t bytes;
         if (i < n_main) {
-          int j = i / (nk / kps), t = 0;
-          const int kc = (i - j * (nk / kps)) * kps;
-          for (; t < 9; ++t)
-            if ((taps >> t) & 1u) {
-              if (j == 0) break;
-              --j;
-            }
-          src = L.w + (size_t)(t * nk + kc) * F * nout;
-          bytes = kps * F * nout * sizeof(bf16);
+          rr::step_weights<F>(L, nout, taps, nk, kps, i, src, bytes);
         } else {
           src = L.ws;
           bytes = 2 * F * F * sizeof(bf16);
         }
-        const uint32_t s = it % STAGES;
-        const uint32_t full = sh.full + 8 * s;
-        mbar_wait(sh.full + 8 * (STAGES + s), ((it / STAGES) & 1u) ^ 1u);
-        const uint32_t dst = sh.ring + s * (uint32_t)wstage_bytes(F);
-        mbar_arrive_expect(full, bytes);
-        if constexpr (CLUSTER > 1) {
-          const uint32_t half = bytes / 2;
-          bulk_copy_multicast(dst + rank * half,
-                              reinterpret_cast<const unsigned char*>(src) + rank * half,
-                              half, full);
-        } else {
-          bulk_copy(dst, src, bytes, full);
-        }
-        ++it;
+        rr::put_step<F, STAGES, CLUSTER>(wring(sh), it, src, bytes, rank);
       };
       // 1. the first STAGES weight steps depend on no activation: their
       //    copies overlap the neighbours' epilogues
@@ -499,35 +393,10 @@ __device__ void produce(const Args& a, const Shared& sh, int groups, int grp, in
         for (; issued < n_steps; ++issued) issue(issued);
     }
   }
-  cluster_sync();   // the peer's last arrivals on this block's barriers are in
+  rr::cluster_sync<CLUSTER>();   // the peer's last arrivals on this block's barriers are in
 }
 
 // ------------------------------------------------------------------ consumers
-
-template <int F>
-__device__ __forceinline__ void release_stage(const Shared& sh, uint32_t s) {
-  if ((threadIdx.x & 31) == 0) {
-    const uint32_t e = sh.full + 8 * (STAGES + s);
-    mbar_arrive(e);
-    if constexpr (CLUSTER > 1) {
-      uint32_t rank;
-      asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
-      mbar_arrive_cluster(peer_addr(e, rank ^ 1u));
-    }
-  }
-}
-
-// Row p's tap bits for layer L: the tap is read (mask on, source in range).
-__device__ __forceinline__ uint32_t row_bits(const Layer& L, int HW, int b, int p) {
-  const float* m = L.mask + ((size_t)b * HW + p) * 9;
-  uint32_t bits = 0;
-#pragma unroll
-  for (int t = 0; t < 9; ++t) {
-    const int s = p + L.shifts[t];
-    bits |= (s >= 0 && s < HW && m[t] != 0.f ? 1u : 0u) << t;
-  }
-  return bits;
-}
 
 template <int F, bool WIDE>
 __device__ void consume_layer(const Args& a, const Shared& sh, const Layer& L, int b,
@@ -540,10 +409,10 @@ __device__ void consume_layer(const Args& a, const Shared& sh, const Layer& L, i
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int ra = (warp >> 2) * 64 + (warp & 3) * 16 + (lane >> 2);   // rows ra, ra + 8
-  const uint32_t bits_a = row_bits(L, a.HW, b, p0 + ra);
-  const uint32_t bits_b = row_bits(L, a.HW, b, p0 + ra + 8);
-  const uint32_t own = tile_taps(L, b, tile, tiles);
-  const uint32_t taps = cluster_taps(L, b, tile, tiles);
+  const uint32_t bits_a = rr::row_bits<false>(L, a.HW, b, p0 + ra);   // folded masks
+  const uint32_t bits_b = rr::row_bits<false>(L, a.HW, b, p0 + ra + 8);
+  const uint32_t own = rr::tile_taps(L, b, tile, tiles);
+  const uint32_t taps = rr::cluster_taps<CLUSTER>(L, b, tile, tiles);
   const int nk = L.K / F;
   const bool has_skip = !WIDE && L.skip != nullptr;
 
@@ -573,94 +442,15 @@ __device__ void consume_layer(const Args& a, const Shared& sh, const Layer& L, i
   // this lane's ldmatrix row (lanes 0-15: rows 0-15, k 0-7; 16-31: k 8-15)
   const uint32_t lane_row =
       sh.rows + (uint32_t)(ra - (lane >> 2) + (lane & 15) + halo) * pt + (lane >> 4) * 16;
-  // fr = the A fragments of K slice kc of tap t, rows off in registers
-  auto load = [&](uint32_t (&fr)[KK][4], int t, int kc) {
-    const bool on_a = (bits_a >> t) & 1u;
-    const bool on_b = (bits_b >> t) & 1u;
-    const uint32_t row = lane_row + L.shifts[t] * (int)pt + kc * F * 2;
-#pragma unroll
-    for (int kk = 0; kk < KK; ++kk) {
-      ldmatrix_x4(fr[kk], row + kk * 32);
-      if (!on_a) fr[kk][0] = fr[kk][2] = 0u;
-      if (!on_b) fr[kk][1] = fr[kk][3] = 0u;
-    }
-  };
-  // a tap of the peer's tile only: zeros, so that the products stay on one
-  // path (a branch around wgmma makes ptxas serialise them)
-  auto zero = [](uint32_t (&fr)[KK][4]) {
-#pragma unroll
-    for (int kk = 0; kk < KK; ++kk) fr[kk][0] = fr[kk][1] = fr[kk][2] = fr[kk][3] = 0u;
-  };
   uint32_t fr0[KK][4], fr1[KK][4];
-  const int kps = slices_per_step(L, F);
-  const int n_main = __popc(taps) * (nk / kps);
+  // read before the wait: read after it (the wait clobbers memory), ptxas
+  // spilled more of the pass and K1 ran slower on the H100
+  const int kps = rr::slices_per_step(L, F);
   mbar_wait(sh.a_full, lc & 1u);
   if (threadIdx.x == 0) stamp(a, b, tiles, 8 * j + 2);
-  if (kps == 2) {
-    // a tap's two slices a step (the narrow K = 2F conv): one buffer each,
-    // the products waited for at the step's end
-    for (int t = 0; t < 9; ++t) {
-      if (!((taps >> t) & 1u)) continue;
-      const uint32_t s = it % STAGES;
-      mbar_wait(sh.full + 8 * s, (it / STAGES) & 1u);
-      if ((own >> t) & 1u) {
-        load(fr0, t, 0);
-        load(fr1, t, 1);
-      } else {
-        zero(fr0);
-        zero(fr1);
-      }
-#ifndef LMK_NO_MMA
-      const uint32_t w = sh.ring + s * WSTAGE;
-      wgmma_fence();
-      mma_slice<NOUT>(acc, fr0, w);
-      mma_slice<NOUT>(acc, fr1, w + F * NOUT * 2);
-      wgmma_commit();
-      wgmma_wait<0>();
-#endif
-      release_stage<F>(sh, s);
-      ++it;
-    }
-  } else {
-    // one slice a step.  A step's products are waited for (wgmma_wait<1>)
-    // only once the next step's are issued, so a step's ldmatrix and the
-    // wait for its weights overlap the products before it; its stage is
-    // released then.  The two fragment buffers alternate (the loop is
-    // unrolled by two so that each buffer stays in registers).
-    int prev = -1;   // the stage whose products are in flight
-    auto step = [&](uint32_t (&fr)[KK][4], int t, int kc) {
-      const uint32_t s = it % STAGES;
-      mbar_wait(sh.full + 8 * s, (it / STAGES) & 1u);
-      if ((own >> t) & 1u) load(fr, t, kc);
-      else zero(fr);
-#ifndef LMK_NO_MMA
-      wgmma_fence();
-      mma_slice<NOUT>(acc, fr, sh.ring + s * WSTAGE);
-#endif
-      wgmma_commit();
-      wgmma_wait<1>();
-      if (prev >= 0) release_stage<F>(sh, (uint32_t)prev);
-      prev = (int)s;
-      ++it;
-    };
-    int t = -1, kc = nk - 1;   // the step before the first
-    auto next = [&]() {
-      if (++kc == nk) {
-        kc = 0;
-        do ++t; while (!((taps >> t) & 1u));
-      }
-    };
-    for (int i = 0; i < n_main; i += 2) {
-      next();
-      step(fr0, t, kc);
-      if (i + 1 < n_main) {
-        next();
-        step(fr1, t, kc);
-      }
-    }
-    wgmma_wait<0>();
-    if (prev >= 0) release_stage<F>(sh, (uint32_t)prev);
-  }
+  rr::tap_products<F, NOUT, STAGES, CLUSTER>(acc, fr0, fr1, wring(sh), lane_row, pt,
+                                             L.shifts, bits_a, bits_b, own, taps, nk,
+                                             kps, it);
   if (lane == 0) mbar_arrive(sh.a_empty);   // this warp's last read of the rows
   if constexpr (!WIDE) {
     if (has_skip) {
@@ -682,12 +472,12 @@ __device__ void consume_layer(const Args& a, const Shared& sh, const Layer& L, i
 #ifndef LMK_NO_MMA
       const uint32_t w = sh.ring + s * WSTAGE;
       wgmma_fence();
-      mma_slice<F>(sacc, fr0, w);
-      mma_slice<F>(sacc, fr1, w + F * F * 2);
+      rr::mma_slice<F>(sacc, fr0, w);
+      rr::mma_slice<F>(sacc, fr1, w + F * F * 2);
       wgmma_commit();
       wgmma_wait<0>();
 #endif
-      release_stage<F>(sh, s);
+      rr::release_stage<STAGES, CLUSTER>(wring(sh), s);
       ++it;
     }
   }
@@ -802,7 +592,7 @@ __device__ void consume(const Args& a, const Shared& sh, int groups, int grp, in
       if (threadIdx.x == 0) publish(a, b, tile, tiles, round, l + 1, nl);
     }
   }
-  cluster_sync();
+  rr::cluster_sync<CLUSTER>();
 }
 
 template <int F>
@@ -825,7 +615,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) pass_kernel(const __grid_constant
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  cluster_sync();   // the peer's barriers exist before anything reaches them
+  rr::cluster_sync<CLUSTER>();   // the peer's barriers exist before anything reaches them
   if (threadIdx.x >= NCONS) produce<F>(a, sh, groups, grp, tile, tiles, nl);
   else consume<F>(a, sh, groups, grp, tile, tiles, nl);
 }

@@ -6,8 +6,10 @@ conv taking the per-image mask triple (A-mask for the first layer, B-mask
 undilated for the resnet streams, B-mask dilated for the dilation streams)
 in the compact (B, k*k, H*W) layout.  `backend="xla"` runs the plain,
 differentiable `locally_masked_conv2d`; `backend="pallas"` (the name the
-configs carry) runs kernel K3 through its differentiable entry, one launch
-per conv.  Children carry Flax's names, so the Flax `pixelcnn` tree loads
+configs carry) runs kernel K3, one launch per conv: through its
+differentiable entry where a gradient is wanted, else (under
+`torch.no_grad()`, or when nothing requires grad) straight through the
+kernel's wrapper.  Children carry Flax's names, so the Flax `pixelcnn` tree loads
 by name (`load_flax`) and `flax_named_params` hands the same parameters to
 the fused forward (K1) and the per-layer kernel engine
 (models/lmconv_fast.py).
@@ -33,7 +35,8 @@ from pixelsynth_tpu_torch.ops.masked_conv import (
 )
 from pixelsynth_tpu_torch.ops.conv_pack import prepare_taps
 from pixelsynth_tpu_torch.ops.masked_conv_kernel import (
-    kernel_width, locally_masked_conv2d_kernel_vjp, raw_mask,
+    kernel_width, locally_masked_conv2d_kernel, locally_masked_conv2d_kernel_vjp,
+    raw_mask,
 )
 
 BACKENDS = ("xla", "pallas")
@@ -114,8 +117,15 @@ class LMConv(FlaxNamed):
         if self.backend == "pallas":
             w = self.weight if self.weight.requires_grad else self._kernel_weight()
             cdt = self.compute_dtype or "bfloat16"
-            out = locally_masked_conv2d_kernel_vjp(x, mask, w, self.bias,
-                                                   self.dilation, cdt)
+            wants_grad = torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in (x, self.weight, self.bias))
+            if wants_grad:
+                out = locally_masked_conv2d_kernel_vjp(x, mask, w, self.bias,
+                                                       self.dilation, cdt)
+            else:
+                out = locally_masked_conv2d_kernel(x, mask, w, self.bias,
+                                                   dilation=self.dilation,
+                                                   compute_dtype=cdt)
             if self.mask_weight is not None:
                 # the learned term on the mask itself is no part of the
                 # kernel: one (HW, k*k) @ (k*k, Cout) product beside it

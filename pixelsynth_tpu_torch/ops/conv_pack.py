@@ -17,6 +17,11 @@ and one bulk copy of F * N contiguous elements brings a step's weights.
 Tile table.  The body's block owns TILE = 128 flat positions; a tap whose
 mask is 0 at all of them is no ring step.  `tile_tap_table` marks the
 (tile, tap) pairs that have any position on.
+
+Resident rows.  K1's pass and K3's resident route keep a tile's operand
+rows and the halo each side in RESIDENT_ROW_BYTES of shared memory
+(csrc/resident_rows.cuh A_REGION), a row of K channels in 2K + 16 bytes;
+`resident_rows_fit` says whether a conv's rows fit.
 """
 
 from __future__ import annotations
@@ -26,6 +31,15 @@ from typing import NamedTuple, Union
 import torch
 
 TILE = 128   # positions a block of the layer body owns (TP in the header)
+RESIDENT_ROW_BYTES = 72 * 1024
+
+
+def resident_rows_fit(W: int, dilation: int, K: int, tile: int = TILE) -> bool:
+    """Whether a tile's rows of K channels and the halo each side (the
+    largest shift of a 3x3 conv at `dilation` on a width-W grid: d W + d
+    rows) fit the resident region."""
+    halo = dilation * W + dilation
+    return (tile + 2 * halo) * (2 * K + 16) <= RESIDENT_ROW_BYTES
 
 
 def pack_taps(w: torch.Tensor, F: int) -> torch.Tensor:

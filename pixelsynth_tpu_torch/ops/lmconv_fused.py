@@ -28,7 +28,9 @@ import torch.nn.functional as F
 
 from pixelsynth_tpu_torch.models.layers import pono
 from pixelsynth_tpu_torch.ops import _cuda
-from pixelsynth_tpu_torch.ops.conv_pack import TILE, pack_taps, tile_tap_table
+from pixelsynth_tpu_torch.ops.conv_pack import (
+    TILE, pack_taps, resident_rows_fit, tile_tap_table,
+)
 from pixelsynth_tpu_torch.ops.masked_conv import locally_masked_embed
 
 # launches of each CUDA kernel, counted by its wrapper
@@ -270,20 +272,12 @@ def dependency_window(W: int, dilation: int, tile: int = TILE) -> int:
     return -(-reach // tile)
 
 
-# shared memory a block of the pass keeps for a layer's operand rows
-# (csrc/lmconv_pass.cuh A_REGION); a row of K channels takes 2K + 16 bytes
-RESIDENT_ROW_BYTES = 72 * 1024
-
-
 def rows_fit(W: int, dilation: int, Fc: int, tile: int = TILE) -> bool:
     """Whether a tile's rows and both halos fit the pass's resident rows:
     the 3x3 convs on K = 2F channels (dilation 1) and on K = F (dilation
     `dilation`), on a width-W grid."""
-    for d, K in ((1, 2 * Fc), (dilation, Fc)):
-        halo = max(abs(s) for s in shifts(3, d, W))
-        if (tile + 2 * halo) * (2 * K + 16) > RESIDENT_ROW_BYTES:
-            return False
-    return True
+    return (resident_rows_fit(W, 1, 2 * Fc, tile)
+            and resident_rows_fit(W, dilation, Fc, tile))
 
 
 def packed_shapes(nr: int, Fc: int):

@@ -6,6 +6,11 @@ pixelsynth_tpu/ops/masked_conv_pallas.py).
 `locally_masked_conv2d_kernel` launches csrc/masked_conv.cu for CUDA
 tensors (bf16 operands on the tensor cores, or the float32 kernel on the
 CUDA cores) and takes `locally_masked_conv2d_plain` for CPU tensors.  The
+bf16 kernel reads x as f32 and rounds it to bf16 itself, so a call is one
+device kernel.  Its route is chosen by the shape alone (`k3_route`): the
+resident route, which keeps a tile's rows and halo in shared memory, where
+they fit (every grid the port runs), else the streamed per-tap body; each
+route has its own count in LAUNCHES.  The
 plain version is the TPU kernel's per-tap form (`_kernel`, :32-48): pad,
 shift, one (B*HW, Cin) @ (Cin, Cout) product per tap with operands rounded
 to the compute dtype, scaled by the mask, accumulated in f32, plus bias.
@@ -23,23 +28,29 @@ others whole); a sampling loop prepares its masks outside the loop and
 hands the `PreparedMask` to every call.  The bf16 kernels read the weights
 as the packed image of ops/conv_pack.py: a caller that holds its weights
 hands in `PackedTaps` (made once); plain weights are packed at the call.
+A call with a `PreparedMask` and `PackedTaps` is checked once: the checked
+launch is kept on the mask (`PreparedMask.launches`) for the weights, bias,
+shape and dtype it was made for, and later calls with the same ones reuse
+it.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Union
+from typing import Dict, NamedTuple, Optional, Union
 
 import torch
 
 from pixelsynth_tpu_torch.ops import _cuda
 from pixelsynth_tpu_torch.ops.conv_pack import (
-    TILE, PackedTaps, TapsArg, prepare_taps, raw_taps, tile_tap_table,
+    TILE, PackedTaps, TapsArg, prepare_taps, raw_taps, resident_rows_fit,
+    tile_tap_table,
 )
 from pixelsynth_tpu_torch.ops.masked_conv import mask_rows, shifted_taps, tap_offsets
 
-# launches of the CUDA kernel, and calls that took the plain version (CPU)
-LAUNCHES = {"masked_conv": 0}
+# launches of the CUDA kernels (the resident route and the float32 kernel;
+# the streamed route), and calls that took the plain version (CPU)
+LAUNCHES = {"masked_conv": 0, "masked_conv_streamed": 0}
 PLAIN_CALLS = {"masked_conv": 0}
 
 
@@ -51,6 +62,9 @@ class PreparedMask(NamedTuple):
     # (B, HW // 128, k*k) int32, 1 where any position of the tile has the
     # tap on; None when HW is no multiple of 128 (no bf16 kernel takes it)
     taps: Optional[torch.Tensor] = None
+    # checked launches of this mask on the card (`_Launch`), by weights,
+    # bias, shape and dtype
+    launches: Optional[Dict] = None
 
 
 MaskArg = Union[torch.Tensor, PreparedMask]
@@ -66,7 +80,7 @@ def prepare_mask(mask: MaskArg) -> PreparedMask:
     if rows.is_cuda and not bool(((rows == 0) | (rows == 1)).all()):
         raise ValueError("mask entries must be 0 or 1 for the CUDA kernels")
     taps = tile_tap_table(rows) if rows.shape[1] % TILE == 0 else None
-    return PreparedMask(rows, mask, taps)
+    return PreparedMask(rows, mask, taps, {})
 
 
 def raw_mask(mask: MaskArg) -> torch.Tensor:
@@ -113,9 +127,11 @@ _I = ctypes.c_int
 def _lib():
     lib = _cuda.load("masked_conv")
     if not getattr(lib, "_typed", False):
-        lib.masked_conv_bf16.argtypes = [_P] * 6 + [_I] * 6 + [_P]
+        lib.masked_conv_bf16.argtypes = [_P] * 6 + [_I] * 7 + [_P]
         lib.masked_conv_f32.argtypes = [_P] * 5 + [_I] * 6 + [_P]
-        lib.masked_conv_bf16.restype = lib.masked_conv_f32.restype = _I
+        lib.masked_conv_cluster.argtypes = []
+        for fn in (lib.masked_conv_bf16, lib.masked_conv_f32, lib.masked_conv_cluster):
+            fn.restype = _I
         lib._typed = True
     return lib
 
@@ -133,23 +149,38 @@ def kernel_width(cin: int, cout: int) -> int:
     return 0
 
 
-def locally_masked_conv2d_kernel(x, mask: MaskArg, weight: TapsArg, bias=None, *,
-                                 dilation: int = 1,
-                                 compute_dtype: str = "bfloat16"):
-    """K3.  x (B, H, W, Cin) f32; mask (B, 9, H*W) or a PreparedMask;
-    weight (9, Cin, Cout), or its PackedTaps for compute_dtype bfloat16;
-    bias (Cout) or None.  Returns (B, H, W, Cout) f32.  Not
-    differentiable: see `locally_masked_conv2d_kernel_vjp`."""
-    cdt = _cdt(compute_dtype)
-    if not x.is_cuda:
-        PLAIN_CALLS["masked_conv"] += 1
-        return locally_masked_conv2d_plain(x, mask, weight, bias,
-                                           dilation=dilation,
-                                           compute_dtype=compute_dtype)
+def k3_route(H: int, W: int, cin: int, dilation: int, cluster: int = 1) -> str:
+    """The bf16 kernel's route for a shape: "resident" where a tile's rows
+    and halo of x fit the resident region and the candidate's 128-position
+    tiles pair into the build's clusters (`cluster`: 1, or 2 in a
+    K3_CLUSTER=2 build), else "streamed".  csrc/masked_conv.cu refuses a
+    call whose route is not its own rule's (`route_of`); nothing else
+    picks a route."""
+    tiles = H * W // TILE
+    if resident_rows_fit(W, dilation, cin) and tiles % cluster == 0:
+        return "resident"
+    return "streamed"
+
+
+class _Launch(NamedTuple):
+    """A checked bf16 or float32 launch: what a call passes besides x and
+    out, and the objects it was checked for."""
+
+    lib: object
+    fn: object
+    args: tuple          # ctypes pointers: mask rows[, tile table], weights, bias
+    ints: tuple          # B, H, W, Cin, Cout, dilation[, route]
+    counter: str         # the LAUNCHES entry of its route
+    weight: object       # the weight argument (a PackedTaps or a tensor)
+    bias: object         # the bias argument (None or a tensor)
+    keep: tuple          # tensors the pointers point into
+
+
+def _check_launch(lib, x, pm: PreparedMask, weight: TapsArg, bias, dilation: int,
+                  cdt) -> _Launch:
+    """Every check of a kernel call, once: shapes, devices, dtypes, the
+    route.  Raises on what the kernels do not take."""
     raw = raw_taps(weight)
-    if torch.is_grad_enabled() and (x.requires_grad or raw.requires_grad):
-        raise ValueError("locally_masked_conv2d_kernel has no gradient: use "
-                         "locally_masked_conv2d_kernel_vjp")
     B, H, W, Cin = x.shape
     K2, _, Cout = raw.shape
     HW = H * W
@@ -159,16 +190,15 @@ def locally_masked_conv2d_kernel(x, mask: MaskArg, weight: TapsArg, bias=None, *
     if raw.shape[1] != Cin or raw.device != dev:
         raise ValueError(f"weight: shape {tuple(raw.shape)} on {raw.device}, "
                          f"expected (9, {Cin}, {Cout}) on {dev}")
-    pm = prepare_mask(mask)
     _cuda.require(pm.rows, "mask", dtype=torch.float32, shape=(B, HW, 9),
                   device=dev)
-    if bias is None:
-        bias = torch.zeros(Cout, dtype=torch.float32, device=dev)
-    _cuda.require(bias, "bias", dtype=torch.float32, shape=(Cout,), device=dev)
-    lib = _lib()
+    b = bias
+    if b is None:
+        b = torch.zeros(Cout, dtype=torch.float32, device=dev)
+    _cuda.require(b, "bias", dtype=torch.float32, shape=(Cout,), device=dev)
     P = _cuda.ptr
     if cdt == torch.bfloat16:
-        if not kernel_width(Cin, Cout) or HW % 128:
+        if not kernel_width(Cin, Cout) or HW % TILE:
             raise ValueError(
                 f"the bf16 K3 kernel takes H*W % 128 == 0 and (Cin, Cout) each "
                 f"F or 2F for one F % 16 == 0, F <= 80; got HW={HW}, "
@@ -176,24 +206,66 @@ def locally_masked_conv2d_kernel(x, mask: MaskArg, weight: TapsArg, bias=None, *
         wk = prepare_taps(weight, kernel_width(Cin, Cout)).image
         _cuda.require(pm.taps, "mask table", dtype=torch.int32,
                       shape=(B, HW // TILE, 9), device=dev)
-        args = (P(pm.rows), P(pm.taps), P(wk))
+        resident = k3_route(H, W, Cin, dilation, lib.masked_conv_cluster()) == "resident"
+        args = (P(pm.rows), P(pm.taps), P(wk), P(b))
+        ints = (B, H, W, Cin, Cout, int(dilation), int(resident))
         fn = lib.masked_conv_bf16
+        counter = "masked_conv" if resident else "masked_conv_streamed"
+        keep = (pm.rows, pm.taps, wk, b)
     else:
         if HW % 8 or Cout > 512 or Cin > 1536:
             raise ValueError(
                 f"the f32 K3 kernel takes H*W % 8 == 0, Cin <= 1536 and "
                 f"Cout <= 512; got HW={HW}, Cin={Cin}, Cout={Cout}")
         wk = raw.to(cdt).contiguous()
-        args = (P(pm.rows), P(wk))
+        args = (P(pm.rows), P(wk), P(b))
+        ints = (B, H, W, Cin, Cout, int(dilation))
         fn = lib.masked_conv_f32
-    xk = x.to(cdt).contiguous()
-    _cuda.require(xk, "x", dtype=cdt, shape=(B, H, W, Cin))
+        counter = "masked_conv"
+        keep = (pm.rows, wk, b)
     _cuda.require(wk, "weight", dtype=cdt, device=dev)
-    out = torch.empty((B, H, W, Cout), dtype=torch.float32, device=dev)
-    rc = fn(P(xk), *args, P(bias), P(out), B, H, W, Cin, Cout,
-            int(dilation), _cuda.stream_of(x))
+    return _Launch(lib, fn, args, ints, counter, weight, bias, keep)
+
+
+def locally_masked_conv2d_kernel(x, mask: MaskArg, weight: TapsArg, bias=None, *,
+                                 dilation: int = 1,
+                                 compute_dtype: str = "bfloat16"):
+    """K3.  x (B, H, W, Cin) f32; mask (B, 9, H*W) or a PreparedMask;
+    weight (9, Cin, Cout), or its PackedTaps for compute_dtype bfloat16;
+    bias (Cout) or None.  Returns (B, H, W, Cout) f32.  Not
+    differentiable: see `locally_masked_conv2d_kernel_vjp`.  On the card
+    a call with a PreparedMask and PackedTaps it has seen before does no
+    checks but the launch's own."""
+    cdt = _cdt(compute_dtype)
+    if not x.is_cuda:
+        PLAIN_CALLS["masked_conv"] += 1
+        return locally_masked_conv2d_plain(x, mask, weight, bias,
+                                           dilation=dilation,
+                                           compute_dtype=compute_dtype)
+    if torch.is_grad_enabled() and (x.requires_grad or raw_taps(weight).requires_grad):
+        raise ValueError("locally_masked_conv2d_kernel has no gradient: use "
+                         "locally_masked_conv2d_kernel_vjp")
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        x = x.float().contiguous()
+    pm = prepare_mask(mask)
+    lib = _lib()
+    key = (id(weight), id(bias), tuple(x.shape), x.device, int(dilation), cdt)
+    cache = pm.launches if pm.launches is not None else {}
+    rec = cache.get(key)
+    if rec is None or rec.lib is not lib or rec.weight is not weight or rec.bias is not bias:
+        rec = _check_launch(lib, x, pm, weight, bias, dilation, cdt)
+        # packed weights are the same image call after call (plain bf16
+        # weights are packed anew at every call)
+        if isinstance(weight, PackedTaps):
+            if len(cache) > 256:
+                cache.clear()
+            cache[key] = rec
+    B, H, W = x.shape[:3]
+    out = torch.empty((B, H, W, rec.ints[4]), dtype=torch.float32, device=x.device)
+    P = _cuda.ptr
+    rc = rec.fn(P(x), *rec.args, P(out), *rec.ints, _cuda.stream_of(x))
     _cuda.check(rc, "masked_conv")
-    LAUNCHES["masked_conv"] += 1
+    LAUNCHES[rec.counter] += 1
     return out
 
 

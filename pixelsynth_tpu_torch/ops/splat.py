@@ -16,9 +16,10 @@ kernel K2 for the blend and kernel K5 for the binning sort.
          an exact-f32 per-tile depth sort (`_bin_points_counting`).
   2. Blend (K2): per tile, radius coverage, the K-nearest-in-z cap,
      alpha = (1 - sqrt(clip(d, 1e-3, 1)))^tau and alphacomposite / wsum /
-     wsumnorm accumulation, plus the coverage map (`blend_tiles`: the CUDA
-     kernel of csrc/splat_blend.cu on the card, `blend_tiles_plain` =
-     `_blend_tiles` on the CPU).
+     wsumnorm accumulation, plus the coverage map (`blend_slots`: on the
+     card the CUDA kernel of csrc/splat_blend.cu, which reads the binner's
+     slot tables and gathers the points itself; on the CPU its plain
+     version, `gather_slots` then `blend_tiles_plain` = `_blend_tiles`).
   3. The background mask is the dilated (max-filtered) uncovered map.
 
 This slice serves inference only: the K2 wrapper raises for inputs that
@@ -322,53 +323,6 @@ def blend_tiles_plain(slot_pts, slot_feats, slot_valid, tile_origin, W: int,
     return torch.cat(outs), torch.cat(covs)
 
 
-def _splat_lib():
-    lib = _cuda.load("splat_blend")
-    if not getattr(lib, "_typed", False):
-        P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.splat_blend.argtypes = [P] * 6 + [I] * 4 + [Fl] * 3 + [I] * 2 + [P]
-        lib.splat_blend.restype = I
-        lib._typed = True
-    return lib
-
-
-def blend_tiles(slot_pts, slot_feats, slot_valid, tile_origin, W: int,
-                cfg: SplatConfig):
-    """K2.  Same contract as `blend_tiles_plain`; launches the CUDA kernel
-    for CUDA tensors (slot_pts (T, M, 3) f32, slot_feats (T, M, C<=8) f32,
-    slot_valid (T, M) bool, tile_origin (T, 2) f32, all contiguous)."""
-    if not slot_pts.is_cuda:
-        return blend_tiles_plain(slot_pts, slot_feats, slot_valid,
-                                 tile_origin, W, cfg)
-    T, M, _ = slot_pts.shape
-    C = slot_feats.shape[-1]
-    TS = cfg.tile_size
-    dev = slot_pts.device
-    if slot_pts.requires_grad or slot_feats.requires_grad:
-        raise ValueError("the K2 blend serves inference only: no gradient")
-    if C > 8 or TS * TS > 1024 or cfg.accumulation not in _ACCUM:
-        raise ValueError(f"K2 takes C <= 8, TS <= 32 and one of {list(_ACCUM)}")
-    _cuda.require(slot_pts, "slot_pts", dtype=torch.float32, shape=(T, M, 3))
-    _cuda.require(slot_feats, "slot_feats", dtype=torch.float32,
-                  shape=(T, M, C), device=dev)
-    _cuda.require(slot_valid, "slot_valid", dtype=torch.bool, shape=(T, M),
-                  device=dev)
-    _cuda.require(tile_origin, "tile_origin", dtype=torch.float32,
-                  shape=(T, 2), device=dev)
-    out = torch.empty((T, TS, TS, C), dtype=torch.float32, device=dev)
-    cov = torch.empty((T, TS, TS), dtype=torch.bool, device=dev)
-    ss, denom = _alpha_consts(W, cfg)
-    P = _cuda.ptr
-    rc = _splat_lib().splat_blend(
-        P(slot_pts), P(slot_feats), P(slot_valid), P(tile_origin), P(out),
-        P(cov), T, M, C, TS, float(cfg.radius * cfg.radius), ss / denom,
-        float(cfg.tau), int(cfg.pp_pixel), _ACCUM[cfg.accumulation],
-        _cuda.stream_of(slot_pts))
-    _cuda.check(rc, "splat_blend")
-    LAUNCHES["splat_blend"] += 1
-    return out, cov
-
-
 def tile_origins(W: int, TS: int, device) -> torch.Tensor:
     nside = W // TS
     t = torch.arange(nside * nside, device=device)
@@ -389,6 +343,78 @@ def gather_slots(points, feats, slot_idx, slot_valid):
             slot_valid.reshape(B * nT, M).contiguous())
 
 
+def _splat_lib():
+    lib = _cuda.load("splat_blend")
+    if not getattr(lib, "_typed", False):
+        P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.splat_blend.argtypes = [P] * 6 + [I] * 6 + [Fl] * 3 + [I] * 2 + [P]
+        lib.splat_blend.restype = I
+        lib._typed = True
+    return lib
+
+
+def untile(x: torch.Tensor, B: int, W: int, TS: int) -> torch.Tensor:
+    """(B * nT, TS, TS, ...) tiles in row-major tile order -> (B, W, W, ...)."""
+    nside = W // TS
+    rest = x.shape[3:]
+    x = x.reshape(B, nside, nside, TS, TS, *rest).transpose(2, 3)
+    return x.reshape(B, W, W, *rest)
+
+
+def blend_slots_plain(points, feats, slot_idx, slot_valid, W: int, cfg: SplatConfig):
+    """K2's plain version: `gather_slots`, then `blend_tiles_plain`, laid
+    out as the image.  -> (out (B, W, W, C) f32, covered (B, W, W) bool)."""
+    B = points.shape[0]
+    TS = cfg.tile_size
+    spts, sfts, svld = gather_slots(points.float(), feats.float(), slot_idx, slot_valid)
+    org = tile_origins(W, TS, points.device).repeat(B, 1)
+    out, cov = blend_tiles_plain(spts, sfts, svld, org, W, cfg)
+    return untile(out, B, W, TS), untile(cov, B, W, TS)
+
+
+def blend_slots(points, feats, slot_idx, slot_valid, W: int, cfg: SplatConfig):
+    """K2.  points (B, N, 3) [col, row, depth], feats (B, N, C), the
+    binner's slot_idx (B, nT, M) and slot_valid (B, nT, M) -> (out (B, W,
+    W, C) f32, covered (B, W, W) bool).  On the card one launch of the
+    CUDA kernel, which gathers the slots' points itself (points and feats
+    f32, C <= 8; slot_idx int64; tile_size a multiple of 8 up to 32); on
+    the CPU `blend_slots_plain`."""
+    if not points.is_cuda:
+        return blend_slots_plain(points, feats, slot_idx, slot_valid, W, cfg)
+    if points.requires_grad or feats.requires_grad:
+        raise ValueError("the K2 blend serves inference only: no gradient")
+    B, N, _ = points.shape
+    C = feats.shape[-1]
+    TS = cfg.tile_size
+    nT = (W // TS) ** 2
+    M = slot_idx.shape[-1]
+    dev = points.device
+    if (C > 8 or TS % 8 or TS > 32 or W % TS
+            or cfg.accumulation not in _ACCUM):
+        raise ValueError(f"K2 takes C <= 8, a tile size that is a multiple of 8 "
+                         f"up to 32 and dividing W, one of {list(_ACCUM)}; got "
+                         f"C={C}, tile_size={TS}, W={W}, {cfg.accumulation!r}")
+    points = points.float().contiguous()
+    feats = feats.float().contiguous()
+    _cuda.require(points, "points", dtype=torch.float32, shape=(B, N, 3))
+    _cuda.require(feats, "feats", dtype=torch.float32, shape=(B, N, C), device=dev)
+    _cuda.require(slot_idx, "slot_idx", dtype=torch.int64, shape=(B, nT, M),
+                  device=dev)
+    _cuda.require(slot_valid, "slot_valid", dtype=torch.bool, shape=(B, nT, M),
+                  device=dev)
+    out = torch.empty((B, W, W, C), dtype=torch.float32, device=dev)
+    cov = torch.empty((B, W, W), dtype=torch.bool, device=dev)
+    ss, denom = _alpha_consts(W, cfg)
+    P = _cuda.ptr
+    rc = _splat_lib().splat_blend(
+        P(points), P(feats), P(slot_idx), P(slot_valid), P(out), P(cov), B, N, W, M,
+        C, TS, float(cfg.radius * cfg.radius), ss / denom, float(cfg.tau),
+        int(cfg.pp_pixel), _ACCUM[cfg.accumulation], _cuda.stream_of(points))
+    _cuda.check(rc, "splat_blend")
+    LAUNCHES["splat_blend"] += 1
+    return out, cov
+
+
 def splat(points, feats, valid=None, *, W: int, cfg: SplatConfig = None):
     """Splat (B, N, 3) [col, row, depth] points with (B, N, C) features
     into (B, W, W, C) f32 + the (B, W, W) bool background mask (point-free
@@ -401,19 +427,8 @@ def splat(points, feats, valid=None, *, W: int, cfg: SplatConfig = None):
     B, N, _ = points.shape
     if valid is None:
         valid = torch.ones((B, N), dtype=torch.bool, device=points.device)
-    TS = cfg.tile_size
-    nside = W // TS
-    nT = nside * nside
-    C = feats.shape[-1]
     slot_idx, slot_valid = _bin_dispatch(points, valid, W, cfg)
-    spts, sfts, svld = gather_slots(points.float(), feats.float(), slot_idx,
-                                    slot_valid)
-    org = tile_origins(W, TS, points.device).repeat(B, 1)
-    out, cov = blend_tiles(spts, sfts, svld, org, W, cfg)
-    img = out.reshape(B, nside, nside, TS, TS, C).permute(0, 1, 3, 2, 4, 5)
-    img = img.reshape(B, W, W, C)
-    covered = cov.reshape(B, nside, nside, TS, TS).permute(0, 1, 3, 2, 4)
-    covered = covered.reshape(B, W, W)
+    img, covered = blend_slots(points, feats, slot_idx, slot_valid, W, cfg)
     return img, dilate_mask(~covered, cfg.background_smoothing_kernel_size)
 
 

@@ -25,8 +25,8 @@ import tempfile
 import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-OWN_KERNELS = ("layer_kernel", "gated_resnet_kernel", "masked_conv", "init_kernel",
-               "pass_kernel")
+OWN_KERNELS = ("layer_kernel", "resident_kernel", "gated_resnet_kernel", "masked_conv",
+               "init_kernel", "pass_kernel")
 
 
 def trace_forward(fn):

@@ -1,6 +1,6 @@
-"""K1's and K4's time by part, on the card.
+"""K1's, K4's and K3's time by part, on the card.
 
-  python3 -m pixelsynth_tpu_torch.tools.profile_k1 [--k1-only]
+  python3 -m pixelsynth_tpu_torch.tools.profile_k1 [--k1-only | --k3-only]
 
 At chip_smoke.py's K1 shapes (16 candidates, 32x32 codes, F=80, bf16):
   1. the device kernels of one up + down pass (torch.profiler): one a
@@ -20,7 +20,11 @@ At chip_smoke.py's K1 shapes (16 candidates, 32x32 codes, F=80, bf16):
   4. K4 (one gated resnet, with and without the skip) with the same parts
      compiled out and, its own, the two grid barriers (LMK_NO_GRID_SYNC)
      and phase 0 (LMK_NO_PHASE0): the kernel's device time from the
-     profiler, beside the time of a call (left out with --k1-only).
+     profiler, beside the time of a call (left out with --k1-only);
+  5. K3's resident route at the trunk's three conv shapes with the same
+     parts compiled out (LMK_NO_COPY: the rows' f32 reads and bf16 stores)
+     and built with the other cluster size (K3_CLUSTER): device us from
+     the profiler (left out with --k1-only; with --k3-only, only this).
 The part variants compute wrong values; only their times are read.  Needs
 a CUDA device and nvcc; prints the card's name and power limit.
 """
@@ -45,6 +49,7 @@ K1_VARIANTS = dict(BODY_VARIANTS, **{
     "multicast (clusters of 2)": ["LMK_MULTICAST"]})
 STAMP_VARIANTS = {"clusters of 1": ["LMK_STAMPS"],
                   "clusters of 2": ["LMK_STAMPS", "LMK_MULTICAST"]}
+K3_VARIANTS = dict(BODY_VARIANTS, **{"clusters of 2": ["K3_CLUSTER=2"]})
 K4_VARIANTS = dict(BODY_VARIANTS, **{
     "no grid barriers": ["LMK_NO_GRID_SYNC"], "no phase 0": ["LMK_NO_PHASE0"],
     "no grid barriers, no phase 0": ["LMK_NO_GRID_SYNC", "LMK_NO_PHASE0"]})
@@ -101,11 +106,45 @@ def stage_us(stamps: torch.Tensor, n_stages: int):
     return out
 
 
+def k3_parts(cs):
+    """K3's device us at the trunk's three conv shapes for every build of
+    K3_VARIANTS (the plain build's clusters are K3_CLUSTER's default)."""
+    from pixelsynth_tpu_torch.ops import _cuda
+    from pixelsynth_tpu_torch.ops import masked_conv_kernel as K3
+    from pixelsynth_tpu_torch.ops.conv_pack import prepare_taps
+
+    with ThreadPoolExecutor(len(K3_VARIANTS)) as pool:
+        list(pool.map(lambda m: _cuda.build(["masked_conv"], defines=m),
+                      K3_VARIANTS.values()))
+    B, side, Fc = 16, 32, 80
+    _, masks, _ = cs._half_grid(side)
+    masks = masks.repeat(B, 1, 1, 1)
+    gen = torch.Generator().manual_seed(3)
+    calls = []
+    for cin, cout, dil, mi, _ in cs._k3_shapes(Fc):
+        x = torch.randn((B, side, side, cin), generator=gen).to(cs.DEVICE)
+        w = prepare_taps(cs._uniform(gen, (9, cin, cout), 0.03), K3.kernel_width(cin, cout))
+        b = cs._uniform(gen, (cout,), 0.03)
+        pm = K3.prepare_mask(masks[:, mi])
+        calls.append((f"({cin},{cout}) d{dil}", lambda x=x, pm=pm, w=w, b=b, dil=dil:
+                      K3.locally_masked_conv2d_kernel(x, pm, w, b, dilation=dil)))
+    plain_lib = _cuda.load("masked_conv")
+    for name, macros in K3_VARIANTS.items():
+        _cuda._libs["masked_conv"] = _cuda.load_variant("masked_conv", macros)
+        us = {tag: round(_device_us(fn, "resident_kernel"), 2) for tag, fn in calls}
+        print(f"[K3 parts] {name:30s} device us {json.dumps(us)}", flush=True)
+    _cuda._libs["masked_conv"] = plain_lib
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_k1: needs a CUDA device")
     sys.path.insert(0, REPO)
     import chip_smoke as cs
+    if "--k3-only" in sys.argv:
+        k3_parts(cs)
+        print(cs.card_line())
+        return
     from pixelsynth_tpu_torch.ops import _cuda
     from pixelsynth_tpu_torch.ops import lmconv_fused as K1
     from pixelsynth_tpu_torch.ops import gated_resnet_kernel as K4
@@ -173,6 +212,7 @@ def main():
     if not k4:
         print(cs.card_line())
         return
+    k3_parts(cs)
     gen = torch.Generator().manual_seed(4)
     _, pm, og, a, (w1, b1, ws, bs, w2, b2) = cs._k4_case(16, 32, 80, "order", gen)
     from pixelsynth_tpu_torch.ops.conv_pack import prepare_taps

@@ -52,7 +52,9 @@ def test_k1_rounds_and_two_tiles_on_card(B, side):
 
 @pytest.mark.gpu
 def test_k2_matches_plain_on_card():
-    """K2, every accumulation, at the bench protocol's size."""
+    """K2 from the binner's tables, every accumulation, at the bench
+    protocol's size; coverage on points at the radius from the edges of its
+    warps' rectangles; `splat()` launches no slot gather."""
     _need_card()
     import chip_smoke
 
@@ -61,7 +63,10 @@ def test_k2_matches_plain_on_card():
 
 @pytest.mark.gpu
 def test_k3_matches_plain_on_card():
-    """K3, bf16 and float32 kernels, at the trunk's three conv shapes."""
+    """K3, bf16 (resident route: three mask cases, 20 calls bit-identical,
+    one device kernel a call, the other cluster size's build) and float32
+    kernels at the trunk's three conv shapes; the streamed route at
+    48x48."""
     _need_card()
     import chip_smoke
 

@@ -178,3 +178,50 @@ def test_k3_takes_packed_taps():
     xr = xt.clone().requires_grad_(True)
     K3.locally_masked_conv2d_kernel_vjp(xr, mt, wt, bt, 2, "bfloat16").sum().backward()
     assert torch.equal(xg.grad, xr.grad)
+
+
+@pytest.mark.parametrize("H,W,cin,dilation,cluster,route", [
+    (32, 32, 160, 1, 1, "resident"),   # the view's grid: 194 rows of 336 B
+    (32, 32, 80, 2, 1, "resident"),    # the dilated conv: 260 rows of 176 B
+    (16, 16, 160, 1, 2, "resident"),   # the stitched walk's grid, two tiles a cluster
+    (44, 44, 160, 1, 1, "resident"),   # 218 rows of 336 B: the widest grid at Cin = 160
+    (45, 45, 160, 1, 1, "streamed"),   # 220 rows exceed the region
+    (64, 64, 80, 2, 1, "resident"),    # 388 rows of 176 B
+    (96, 96, 80, 2, 1, "streamed"),    # 516 rows of 176 B exceed it
+    (16, 24, 160, 1, 2, "streamed"),   # three tiles do not pair into clusters of 2
+    (16, 24, 160, 1, 1, "resident"),
+])
+def test_k3_route(H, W, cin, dilation, cluster, route):
+    """The bf16 K3 route is a function of the shape (and the build's
+    cluster size) alone: the resident route where a tile's rows and halo
+    of x fit the region K1's pass uses (`rows_fit`)."""
+    assert K3.k3_route(H, W, cin, dilation, cluster) == route
+
+
+def test_lmconv_no_grad_calls_the_kernel_wrapper(monkeypatch):
+    """LMConv(backend="pallas") under torch.no_grad() calls the K3 wrapper
+    straight, not the autograd Function, and gives the autograd path's
+    output exactly (on the CPU both take the plain version, once a call)."""
+    from pixelsynth_tpu_torch.models.lmconv import LMConv
+
+    x, mask, _, _, _ = _inputs(7, cin=16, cout=16)
+    conv = LMConv(16, 32, dilation=2, compute_dtype="bfloat16", backend="pallas")
+    with torch.no_grad():
+        conv.reset(torch.Generator().manual_seed(0))
+    xt, mt = torch.as_tensor(x), torch.as_tensor(mask)
+    calls = dict(K3.PLAIN_CALLS)
+    want = conv(xt.clone().requires_grad_(True), mt)     # the autograd path
+    assert want.grad_fn is not None
+    assert K3.PLAIN_CALLS["masked_conv"] == calls["masked_conv"] + 1
+
+    def no_function(*a, **k):
+        raise AssertionError("the no-grad call went through _MaskedConvFn")
+
+    monkeypatch.setattr(K3._MaskedConvFn, "apply", no_function)
+    with torch.no_grad():
+        got = conv(xt, mt)
+    assert K3.PLAIN_CALLS["masked_conv"] == calls["masked_conv"] + 2
+    got_free = conv(xt, mt)                              # nothing requires grad
+    assert K3.PLAIN_CALLS["masked_conv"] == calls["masked_conv"] + 3
+    assert torch.equal(got, want.detach()) and torch.equal(got_free, got)
+    assert got.dtype == torch.float32 and got.shape == (B, H, W, 32)

@@ -82,9 +82,27 @@ def test_blend_wrapper_counts_no_launch_on_cpu():
     before = dict(K2.LAUNCHES)
     idx, sv = K2._bin_points_batched(torch.as_tensor(pts), torch.as_tensor(valid),
                                      32, cfg)
-    spts, sfts, svld = K2.gather_slots(torch.as_tensor(pts), torch.as_tensor(feats),
-                                       idx, sv)
-    org = K2.tile_origins(32, 16, "cpu")
-    out, cov = K2.blend_tiles(spts, sfts, svld, org, 32, cfg)
-    assert out.shape == (4, 16, 16, 3) and cov.dtype == torch.bool
+    out, cov = K2.blend_slots(torch.as_tensor(pts), torch.as_tensor(feats), idx, sv,
+                              32, cfg)
+    assert out.shape == (1, 32, 32, 3) and cov.dtype == torch.bool
+    assert cov.shape == (1, 32, 32)
     assert K2.LAUNCHES == before
+
+
+@pytest.mark.parametrize("accumulation", ["alphacomposite", "wsum", "wsumnorm"])
+def test_blend_slots_matches_jax_splat(accumulation):
+    """K2's entry on CPU tensors (its plain version: the slot gather, then
+    the tile blend) from the binner's tables, against the JAX splat at
+    W = 32: fp32 both sides, summed in other orders (atol 5e-4, rtol
+    1e-3, as the card's check); the background masks equal."""
+    pts, feats, valid = _points(N=100, seed=2)
+    cfg, jcfg = _cfgs(accumulation=accumulation)
+    want, bg_want = jax_splat(jnp.asarray(pts), jnp.asarray(feats),
+                              jnp.asarray(valid), W=32, cfg=jcfg)
+    p, f, v = (torch.as_tensor(a) for a in (pts, feats, valid))
+    idx, sv = K2._bin_dispatch(p, v, 32, cfg)
+    out, cov = K2.blend_slots(p, f, idx, sv, 32, cfg)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=5e-4, rtol=1e-3)
+    bg = K2.dilate_mask(~cov, cfg.background_smoothing_kernel_size)
+    np.testing.assert_array_equal(bg.numpy(), np.asarray(bg_want))
+    assert cov.any() and not cov.all()
