@@ -10,7 +10,9 @@ prints the final ok line):
   2. each kernel against its plain PyTorch version at the main path's
      shapes, timed with CUDA events (K1: pop 16, 32x32 codes, F=80, bf16,
      also 33 candidates (rounds) and 16x16 codes, 20 repeated calls
-     bit-identical, one device kernel a pass by the profiler;
+     bit-identical, one device kernel a pass; and its "k3" route (every
+     masked conv a K3 launch) in f32 at that size and in bf16 at shapes
+     the kernel cannot hold: 2 x 48x48, 4 x 12x12, F=96;
      K2: W=256, 2 images x 131072 points, from the binner's tables, each
      accumulation, coverage on points at the radius from the edges of the
      warps' rectangles, and no slot gather in `splat()` by the profiler;
@@ -19,16 +21,20 @@ prints the final ok line):
      bit-identical, one device kernel a call by the profiler; the build
      with the other cluster size too, built in the phase) and float32, and
      the streamed route at 48x48; K4: pop 16, 32x32, F=80, with and without the skip,
-     and 4 images of 16x16 and 17 of 32x32 (two rounds of one launch);
+     and 4 images of 16x16 and 17 of 32x32 (two rounds of one launch),
+     and its "k3" route in f32 and at 12x12 and F=96;
      K1, K3 and K4 also on masks with every tap on and on masks that are 0
      on whole 128-position tiles, the two edges of the (tile, tap) skip;
      K5: the binning keys of 131072 points, (1, 2^19), and (2, 2^17), and
      three hard rows of 2^14 (all keys equal, negative keys with both int32
      extremes, descending keys), exact against torch.sort(stable=True),
-     which is also its library yardstick, and against both plain versions);
+     which is also its library yardstick, and against both plain versions).
+     A one-kernel-a-call check counts exactly N launches by the wrapper
+     and at most N under one name by the profiler;
   3. the default path at full width: one `generate_view` at the Config()
      defaults (W=256, 32x32 codes, nr_filters 80, speculative 12) with
-     seeded random weights and 16 candidates (K1, K2);
+     seeded random weights and 16 candidates (K1, K2); then the same view
+     with lmconv.compute_dtype="float32" (K1's "k3" route: K3, K2);
   4. the per-layer engines: the AR fill (`ar_sample` over every background
      cell, pop 16) through the module path (32 K3 launches a forward) and
      through the per-layer kernel engine (14 K4 + 4 K3), each held to the
@@ -36,9 +42,12 @@ prints the final ok line):
   5. the same view with sample_backend="pallas" and sort_backend="pallas"
      (K3, K5, K2), its binning tables held to the library-sort binner's;
   6. the trained relay checkpoint (evidence/relay/stitched.npz, W=128)
-     through the weight bridge, walking directions R and L.
-Each path's launch counts are zeroed just before it is driven and read
-just after.  The script ends with a `kernels` JSON line, the card's name
+     through the weight bridge, walking directions R and L;
+  7. the relay gate on that checkpoint (eval/relay_report.py at the
+     report's sizes, K1, K2), held to the floors of
+     tests/test_relay_artifact.py beside the JAX report's numbers.
+Each path's launch counts (and the wrappers' counts of plain-version
+calls) are zeroed just before it is driven and read just after.  The script ends with a `kernels` JSON line, the card's name
 and power limit, and the result line {"ok": true, "device": {...}}.
 
 TF32 is off for both matmuls and convolutions (set below), so float32
@@ -158,14 +167,15 @@ def _pixelcnn_params(Fc=80, seed=0):
     return cfg, random_pixelcnn_params(cfg, torch.Generator().manual_seed(seed))
 
 
-def _k1_inputs(B=16, side=32, Fc=80, seed=0, case="order"):
+def _k1_inputs(B=16, side=32, Fc=80, seed=0, case="order", compute_dtype="bfloat16"):
     import numpy as np
     import torch
     from pixelsynth_tpu_torch.ops.lmconv_fused import (
         embed_input, fold_boundary_masks, pack_lmconv_params)
 
     _, params = _pixelcnn_params(Fc, seed)
-    packed = pack_lmconv_params(params, nr_resnet=2, device=DEVICE)
+    packed = pack_lmconv_params(params, nr_resnet=2, compute_dtype=compute_dtype,
+                                device=DEVICE)
     rng = np.random.default_rng(seed)
     _, masks, _ = _half_grid(side)
     masks = _mask_cases(masks.repeat(B, 1, 1, 1))[case]
@@ -217,24 +227,124 @@ def _k1_check(tag, B, side, Fc, case="order"):
     return max(e_up, e_dn)
 
 
+def _bf16_ulps(got, want):
+    """|got - want| in units of one bf16 ulp at |want| (bf16 keeps 8
+    significant bits: an ulp at [2^e, 2^(e+1)) is 2^(e-7))."""
+    import torch
+
+    a = want.float().abs().clamp(min=2.0 ** -126)
+    return (got.float() - want.float()).abs() / torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+# the "k3" route's K3 launches a pass at nr 2: up 6 gated resnets x 2 convs
+# + 2 dilated convs; down 8 x (2 convs + the nin skip) + 2 dilated
+K3_A_PASS = {"lmconv_up": 14, "lmconv_down": 26}
+
+
+def _k1_route_check(tag, B, side, Fc, compute_dtype, timed=False):
+    """K1's "k3" route (`k1_route`: f32 compute, or a shape the K1 kernel
+    cannot hold) on the card against the plain versions, through the
+    wrappers `up` / `down`: each pass counted once under its route's name,
+    with 14 / 26 K3 launches and no plain version.  float32: down (from
+    the plain stack) within atol 1e-4; the up stack is bf16 even at f32
+    compute, so where the two f32 sums straddle a bf16 rounding boundary an
+    entry differs by one bf16 ulp: every entry within atol 1e-4 or one
+    bf16 ulp of its value, and the logits of the whole forward (the k3
+    stack through the k3 down) agree in argmax >= 0.99.  bfloat16: K1's own tolerance (2% of the range, argmax
+    >= 0.97).  Returns (max error, {pass: ms} when timed)."""
+    import torch
+    from pixelsynth_tpu_torch.ops import lmconv_fused as K1
+
+    packed, u0, mu, md, *_ = _k1_inputs(B, side, Fc, compute_dtype=compute_dtype)
+    route = K1.k1_route(side, side, Fc, 2, 2, compute_dtype)
+    if route != "k3":
+        raise AssertionError(f"K1 {tag}: route {route}, expected k3")
+    kw = dict(H=side, W=side, nr=2, dilation=2, compute_dtype=compute_dtype)
+    pkw = dict(W=side, nr=2, dilation=2, compute_dtype=compute_dtype)
+    stack_p = K1.up_plain(u0, mu, md, packed, **pkw)
+    out_p = K1.down_plain(stack_p, mu, md, packed, **pkw)
+    tables = K1.k3_masks(mu, md)      # made once, as the sampler makes them
+    torch.cuda.synchronize()
+    zero_launches()
+    stack_k = K1.up(u0, mu, md, packed, tables=tables, **kw)
+    out_k = K1.down(stack_p, mu, md, packed, tables=tables, **kw)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_launches().items() if v}
+    check_no_plain(f"K1's k3 route ({tag})")
+    n_k3 = launches.get("masked_conv", 0) + launches.get("masked_conv_streamed", 0)
+    if (launches.get("lmconv_up_k3") != 1 or launches.get("lmconv_down_k3") != 1
+            or "lmconv_up" in launches or "lmconv_down" in launches
+            or n_k3 != sum(K3_A_PASS.values())):
+        raise AssertionError(f"K1 {tag}: launches {json.dumps(launches)}")
+    out_kk = K1.down(stack_k, mu, md, packed, tables=tables, **kw)
+    lk = torch.nn.functional.elu(out_kk) @ packed["nin_w"]
+    lp = torch.nn.functional.elu(out_p) @ packed["nin_w"]
+    agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    e_up = float((stack_k.float() - stack_p.float()).abs().max())
+    e_dn = float((out_k - out_p).abs().max())
+    if compute_dtype == "float32":
+        d_up = (stack_k.float() - stack_p.float()).abs()
+        straddles = d_up > 1e-4
+        worst_ulps = float(_bf16_ulps(stack_k, stack_p)[straddles].max()) \
+            if bool(straddles.any()) else 0.0
+        ok = worst_ulps <= 1.0 and e_dn <= 1e-4 and agree >= 0.99
+        what = (f"up max {e_up:.3e}, entries beyond atol 1e-4 "
+                f"{float(straddles.float().mean()):.2e} (each within {worst_ulps:.0f} bf16 "
+                f"ulp, tol 1), down {e_dn:.3e} (atol 1e-4), logits argmax {agree:.4f} "
+                f"(tol >= 0.99)")
+    else:
+        t_up = 0.02 * max(1.0, float(stack_p.float().abs().max()))
+        t_dn = 0.02 * max(1.0, float(out_p.abs().max()))
+        ok = e_up <= t_up and e_dn <= t_dn and agree >= 0.97
+        what = (f"up {e_up:.3e} (tol {t_up:.3e}), down {e_dn:.3e} (tol {t_dn:.3e}), "
+                f"logits argmax {agree:.4f} (tol >= 0.97)")
+    log(f"[K1] k3 route {tag} {compute_dtype}: K3 launches {json.dumps(launches)}; {what}")
+    if not ok:
+        raise AssertionError(f"K1's k3 route disagrees with the plain version ({tag})")
+    times = {}
+    if timed:
+        times["lmconv_up"] = time_ms(lambda: K1.up(u0, mu, md, packed, tables=tables, **kw),
+                                     reps=3, rounds=3)
+        times["lmconv_down"] = time_ms(
+            lambda: K1.down(stack_p, mu, md, packed, tables=tables, **kw), reps=3, rounds=3)
+    return max(e_up, e_dn), times
+
+
 def device_kernels(fn, reps=10):
     """The device kernels of `reps` calls of fn, from torch.profiler:
     ({kernel name: launches}, device us per call: their time over the
-    launches seen, times launches per call)."""
+    launches seen, times launches per call, {wrapper count: launches} the
+    wrappers counted in the same `reps` calls)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    before = read_launches()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    counted = {k: v - before[k] for k, v in read_launches().items() if v != before[k]}
     hits = [e for e in prof.key_averages() if e.device_time_total > 0]
     n = sum(e.count for e in hits)
     per_call = max(1, round(n / reps))
     return ({e.key: e.count for e in hits},
-            sum(e.device_time_total for e in hits) / max(1, n) * per_call)
+            sum(e.device_time_total for e in hits) / max(1, n) * per_call, counted)
+
+
+def check_one_kernel_a_call(tag, name, kernels, counted, reps=10):
+    """The one-kernel-a-call check of `reps` calls: exactly `reps` launches
+    by the wrapper's count `name` and no other count, and one kernel name
+    with at most `reps` launches by the profiler (which may miss short
+    launches at the start of its window, never add one; a cast or a second
+    launch a call would be a second name or another count)."""
+    n = sum(kernels.values())
+    log(f"{tag}: {reps} calls: wrapper launches {json.dumps(counted)}, device "
+        f"kernels by the profiler {json.dumps(kernels)}")
+    if counted != {name: reps} or len(kernels) != 1 or not 1 <= n <= reps:
+        raise AssertionError(f"{tag}: {reps} calls counted {json.dumps(counted)} and ran "
+                             f"{json.dumps(kernels)}, expected one {name} kernel a call")
 
 
 def host_us(fn, reps=20):
@@ -314,14 +424,8 @@ def phase_k1(report, B=16, side=32, Fc=80, others=((33, 32), (8, 16)), repeats=2
             "lmconv_down": lambda: K1.down(stack_p, mu, md, packed, **kw)}
     dev = {}
     for name, fn in runs.items():
-        kernels, dev[name] = device_kernels(fn)
-        n = sum(kernels.values())
-        # the profiler may miss the first launch of its window, never add one
-        log(f"[K1] {name}: device kernels of 10 calls {json.dumps(kernels)}; "
-            f"launches a pass {round(n / 10)}")
-        if len(kernels) != 1 or not 9 <= n <= 10:
-            raise AssertionError(f"10 {name} calls ran {json.dumps(kernels)}, "
-                                 "expected one device kernel a call")
+        kernels, dev[name], counted = device_kernels(fn)
+        check_one_kernel_a_call(f"[K1] {name}", name, kernels, counted)
     up_ms = time_ms(runs["lmconv_up"])
     dn_ms = time_ms(runs["lmconv_down"])
     up_plain_ms = time_ms(lambda: K1.up_plain(u0, mu, md, packed, W=side, nr=2,
@@ -338,6 +442,17 @@ def phase_k1(report, B=16, side=32, Fc=80, others=((33, 32), (8, 16)), repeats=2
              + wbytes(("uw1", "ub1", "uw2", "ub2", "udw", "udb")))
     by_dn = (stack_k.numel() * 2 + masks_b + out_k.numel() * 4
              + wbytes(("dw1", "db1", "dws", "dbs", "dw2", "db2", "ddw", "ddb")))
+    # the "k3" route: f32 compute at this size (timed beside the kernel),
+    # and the shapes the K1 kernel cannot hold, in bf16: rows beyond the
+    # resident rows (K3's streamed route), HW % 128 != 0 and F > 80 (K3's
+    # f32 kernel on bf16-rounded operands)
+    _, route_ms = _k1_route_check(f"({B}, {side}) F={Fc}", B, side, Fc, "float32",
+                                  timed=True)
+    for b_, s_, f_ in ((2, 48, 80), (4, 12, 80), (4, 16, 96)):
+        _k1_route_check(f"({b_}, {s_}) F={f_}", b_, s_, f_, "bfloat16")
+    for name, ms in (("lmconv_up", up_ms), ("lmconv_down", dn_ms)):
+        log(f"[K1] {name} at ({B}, {side}) F={Fc}: f32 k3 route {route_ms[name]:.3f} ms "
+            f"a pass ({K3_A_PASS[name]} K3 launches), bf16 K1 kernel {ms:.3f} ms")
     for name, ms, pms, fl, by, err, line in (
             ("lmconv_up", up_ms, up_plain_ms, f_up, by_up, err_up, 151),
             ("lmconv_down", dn_ms, dn_plain_ms, f_dn, by_dn, err_dn, 178)):
@@ -475,7 +590,7 @@ def phase_k2(report, W=256, N=65536 * 2):
     if not (same and close):
         raise AssertionError("K2 disagrees with its plain version on the radius")
     # the splat on the card: no slot gather outside the kernel
-    kernels, _ = device_kernels(lambda: K2.splat(pts, fts, vld, W=W, cfg=cfg), reps=3)
+    kernels, _, _ = device_kernels(lambda: K2.splat(pts, fts, vld, W=W, cfg=cfg), reps=3)
     gathers = {k: v for k, v in kernels.items() if "gather" in k.lower()}
     log(f"[K2] splat(): {sum(kernels.values()) / 3:.1f} device kernels a call, "
         f"gather kernels {json.dumps(gathers)}")
@@ -589,18 +704,11 @@ def phase_k3(report, B=16, side=32, Fc=80, repeats=20):
         outs = [run() for _ in range(repeats)]
         torch.cuda.synchronize()
         same = all(torch.equal(o, first) for o in outs)
-        kernels, dev_us = device_kernels(run)
-        n = sum(kernels.values())
-        log(f"[K3] {tag}: {repeats} back-to-back calls bit-identical {same}; device "
-            f"kernels of 10 calls {json.dumps(kernels)}")
+        kernels, dev_us, counted = device_kernels(run)
+        log(f"[K3] {tag}: {repeats} back-to-back calls bit-identical {same}")
         if not same:
             raise AssertionError(f"K3 {tag}: calls on the same inputs differ")
-        # one kernel name and at most one launch a call: a cast would be a
-        # second name.  The profiler may miss launches at the start of its
-        # window (8 and 9 of 10 seen for this short kernel), never add one.
-        if len(kernels) != 1 or not 1 <= n <= 10:
-            raise AssertionError(f"K3 {tag}: 10 calls ran {json.dumps(kernels)}, "
-                                 "expected one device kernel a call")
+        check_one_kernel_a_call(f"[K3] {tag}", "masked_conv", kernels, counted)
         ms = time_ms(run)
         ms32 = time_ms(lambda: K3.locally_masked_conv2d_kernel(
             x, pm, w, b, compute_dtype="float32", **kw), reps=3, rounds=3)
@@ -650,7 +758,7 @@ def phase_k3(report, B=16, side=32, Fc=80, repeats=20):
             cin, cout = w.shape[1], w.shape[2]
             packed = prepare_taps(w, K3.kernel_width(cin, cout))
             run = lambda: K3.locally_masked_conv2d_kernel(x, pm, packed, b, dilation=dil)
-            _, dev_us = device_kernels(run)
+            _, dev_us, _ = device_kernels(run)
             log(f"[K3] {tag}, clusters of {other}: {time_ms(run):.4f} ms, device "
                 f"{dev_us:.1f} us a call")
     finally:
@@ -705,6 +813,48 @@ def _k4_check(tag, args):
     if not (err <= tol and mean_err <= mean_tol):
         raise AssertionError(f"K4 disagrees with its plain version ({tag})")
     return err
+
+
+def _k4_route_check(tag, B, side, Fc, compute_dtype, gen, timed=False):
+    """K4's "k3" route (`k4_route`: f32 compute, or a shape the K4 kernel
+    cannot hold) on the card against the plain version, with and without
+    the skip, through `gated_resnet_kernel`: one call counted under the
+    route's name, 3 (2 without the skip) K3 launches, no plain version.
+    float32 within atol 1e-4 (no bf16 step anywhere in a call); bfloat16
+    at K4's own tolerances (`_k4_check`).  Returns {skip: ms} when timed."""
+    import torch
+    from pixelsynth_tpu_torch.ops import gated_resnet_kernel as K4
+
+    if K4.k4_route(side, side, Fc, compute_dtype) != "k3":
+        raise AssertionError(f"K4 {tag}: not on the k3 route")
+    _, pm, og, a, (w1, b1, ws, bs, w2, b2) = _k4_case(B, side, Fc, "order", gen)
+    times = {}
+    for skip in (False, True):
+        args = (og, a if skip else None, pm, w1, b1, ws if skip else None,
+                bs if skip else None, w2, b2)
+        want = K4.gated_resnet_plain(*args, compute_dtype=compute_dtype)
+        torch.cuda.synchronize()
+        zero_launches()
+        got = K4.gated_resnet_kernel(*args, compute_dtype=compute_dtype)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in read_launches().items() if v}
+        check_no_plain(f"K4's k3 route ({tag})")
+        n_k3 = launches.get("masked_conv", 0) + launches.get("masked_conv_streamed", 0)
+        if launches.get("gated_resnet_k3") != 1 or "gated_resnet" in launches \
+                or n_k3 != 2 + skip:
+            raise AssertionError(f"K4 {tag} skip={skip}: launches {json.dumps(launches)}")
+        err = float((got - want).abs().max())
+        mean_err = float((got - want).abs().mean())
+        tol, mean_tol = (1e-4, 1e-4) if compute_dtype == "float32" else (0.02, 1e-4)
+        log(f"[K4] k3 route {tag} {compute_dtype} skip={skip}: launches "
+            f"{json.dumps(launches)}; max|route-plain| {err:.3e} (tol {tol:.0e}), "
+            f"mean {mean_err:.3e} (tol {mean_tol:.0e})")
+        if not (err <= tol and mean_err <= mean_tol):
+            raise AssertionError(f"K4's k3 route disagrees with the plain version ({tag})")
+        if timed:
+            times[skip] = time_ms(lambda: K4.gated_resnet_kernel(
+                *args, compute_dtype=compute_dtype), reps=3, rounds=3)
+    return times
 
 
 def phase_k4(report, B=16, side=32, Fc=80, others=((4, 16), (17, 32))):
@@ -762,6 +912,16 @@ def phase_k4(report, B=16, side=32, Fc=80, others=((4, 16), (17, 32))):
             f"{flops / 1e9:.2f} GFLOP needed, {by / 1e6:.1f} MB, "
             f"bound {max(t_ops, t_bytes):.4f} ms")
         res[skip] = (max(err, worst), ms, pms, t_ops, t_bytes)
+    # the "k3" route: f32 compute at this size (timed beside the kernel), and
+    # bf16 at shapes the K4 kernel cannot hold (HW % 128 != 0, F > 80)
+    route_ms = _k4_route_check(f"({B}, {side}) F={Fc}", B, side, Fc, "float32", gen,
+                               timed=True)
+    for b_, s_, f_ in ((4, 12, Fc), (4, 16, 96)):
+        _k4_route_check(f"({b_}, {s_}) F={f_}", b_, s_, f_, "bfloat16", gen)
+    for skip in (False, True):
+        log(f"[K4] skip={skip} at ({B}, {side}) F={Fc}: f32 k3 route "
+            f"{route_ms[skip]:.3f} ms a call ({2 + skip} K3 launches), bf16 K4 kernel "
+            f"{res[skip][1]:.4f} ms")
     # one entry: the mean over a forward's 14 launches (6 without, 8 with skip)
     mean = [(6 * res[False][i] + 8 * res[True][i]) / 14 for i in range(1, 5)]
     report["gated_resnet"] = _entry(
@@ -856,24 +1016,33 @@ def _view_inputs(W, seed=0):
     return img[None].astype(np.float32), demo_cameras(1.0)
 
 
-def _counters():
+def _counters(attr="LAUNCHES"):
+    """The wrappers' counts of launches (`LAUNCHES`) or of calls that took
+    the plain version (`PLAIN_CALLS`)."""
     from pixelsynth_tpu_torch.ops import (
         gated_resnet_kernel, lmconv_fused, masked_conv_kernel, sort_kernel, splat)
 
-    return [lmconv_fused.LAUNCHES, splat.LAUNCHES, masked_conv_kernel.LAUNCHES,
-            gated_resnet_kernel.LAUNCHES, sort_kernel.LAUNCHES]
+    return [getattr(m, attr) for m in (lmconv_fused, splat, masked_conv_kernel,
+                                       gated_resnet_kernel, sort_kernel)]
 
 
 def zero_launches():
-    for counts in _counters():
+    for counts in _counters() + _counters("PLAIN_CALLS"):
         counts.update(dict.fromkeys(counts, 0))
 
 
-def read_launches():
+def read_launches(attr="LAUNCHES"):
     out = {}
-    for counts in _counters():
+    for counts in _counters(attr):
         out.update(counts)
     return out
+
+
+def check_no_plain(path):
+    """No wrapper took its plain version since the counts were zeroed."""
+    plain = {k: v for k, v in read_launches("PLAIN_CALLS").items() if v}
+    if plain:
+        raise AssertionError(f"{path} ran plain versions: {json.dumps(plain)}")
 
 
 def record_launches(report, launches, names, path):
@@ -970,6 +1139,28 @@ def phase_view(report, cfg=None):
     over = torch.clamp(counts - cfg.model.splat.max_points_per_tile, min=0)
     log(f"[view] splat: max entries per tile {int(counts.max())}, entries over "
         f"max_points_per_tile={cfg.model.splat.max_points_per_tile}: {int(over.sum())}")
+
+
+def phase_view_f32(cfg=None):
+    """The view of phase 3 with lmconv.compute_dtype="float32": every AR
+    forward takes K1's "k3" route (K3's f32 kernel), no K1 launch and no
+    plain version."""
+    from pixelsynth_tpu_torch.config import Config
+
+    cfg = cfg or Config()
+    cfg.model.lmconv.compute_dtype = "float32"
+    out, launches, n_bg, _, _ = _run_view("view-f32", cfg)
+    check_no_plain("the f32 view")
+    n_fwd = out["ar_stats"]["n_forwards"]
+    want = {"lmconv_up_k3": n_fwd, "lmconv_down_k3": n_fwd, "lmconv_up": 0,
+            "lmconv_down": 0}
+    got = {k: launches[k] for k in want}
+    n_k3 = launches["masked_conv"]
+    log(f"[view-f32] {n_fwd} AR forwards: {json.dumps(got)}, {n_k3} K3 launches "
+        f"({sum(K3_A_PASS.values())} a forward)")
+    if n_fwd == 0 or got != want or n_k3 != sum(K3_A_PASS.values()) * n_fwd \
+            or launches["splat_blend"] != 1:
+        raise AssertionError(f"the f32 view left the k3 route: {json.dumps(launches)}")
 
 
 def _engine_fns(B=16, side=32, Fc=80):
@@ -1159,6 +1350,95 @@ def phase_walk(directions=("R", "L"), num_split=2):
         f"{outs['CloudValidCount'].tolist()}")
 
 
+# the floors of tests/test_relay_artifact.py, on the JAX report's numbers
+def relay_floors(got, jax_report, entropy, ln_classes):
+    """[(floor, holds)] of the relay gate."""
+    by_num = got["scene_gt_psnr_by_numerator"]
+    nums = sorted(int(k) for k in by_num)
+    return [
+        ("outpainted bg PSNR > no-outpaint bg PSNR (:120)",
+         got["paired_psnr_bg"] > got["baseline_no_outpaint_psnr_bg"]),
+        ("paired PSNR > report - 3 (:126)",
+         got["paired_psnr"] > jax_report["paired_psnr"] - 3.0),
+        ("consistency > report - 4 (:192)",
+         got["consistency_psnr_vis"] > jax_report["consistency_psnr_vis"] - 4.0),
+        ("consistency > 16 (:196)", got["consistency_psnr_vis"] > 16.0),
+        ("classifier entropy < 0.8 ln(classes) on fresh views (:154)",
+         entropy < 0.8 * ln_classes),
+        ("scene_gt_psnr >= 14 (:210)", got["scene_gt_psnr"] >= 14.0),
+        ("adjacent consistency >= 30 (:211)",
+         got["scene_adjacent_consistency_psnr"] >= 30.0),
+        ("numerator 1 >= last numerator - 1 (:214)",
+         by_num[str(nums[0])] >= by_num[str(nums[-1])] - 1.0),
+    ]
+
+
+def phase_relay(report, n_pairs=48, batch=8, consistency_items=16, num_samples=None):
+    """The relay gate (eval/relay_report.py `build_report`) on the trained
+    checkpoint at the report's own sizes: 48 held-out pairs in batches of
+    8, the checkpoint's 8 samples, T = 0.5 for the paired and consistency
+    evals, 16 consistency items, and the demo CLI's walk of the held-out
+    world at the checkpoint's walk settings; its numbers beside the JAX
+    report's (evidence/relay/relay_report.json), held to the floors of
+    tests/test_relay_artifact.py.  K1 and K2 must launch and no plain
+    version run; the output goes under build/relay/."""
+    import numpy as np
+    import torch
+    from pixelsynth_tpu_torch.data.panorama import synthesize_pano_shard
+    from pixelsynth_tpu_torch.eval.relay_report import build_report
+    from pixelsynth_tpu_torch.models.classifier import (
+        classifier_entropy, preprocess_for_classifier)
+    from pixelsynth_tpu_torch.pipeline import PixelSynth
+
+    ckpt = os.path.join(REPO, "evidence/relay/stitched.npz")
+    with open(os.path.join(REPO, "evidence/relay/relay_report.json")) as f:
+        jax_report = json.load(f)
+    out_dir = os.path.join(REPO, "build", "relay")
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    got = build_report(ckpt, out_dir, device=DEVICE, num_samples=num_samples,
+                       n_pairs=n_pairs, batch=batch, consistency_items=consistency_items)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    log(f"[relay] build_report in {secs:.1f} s on {card_line()} (paired "
+        f"{got['paired_eval_seconds']:.1f} s, consistency {got['consistency_seconds']:.1f}"
+        f" s, demo walk {got['scene_walk_seconds']:.1f} s); launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    check_no_plain("the relay gate")
+    record_launches(report, launches, ("lmconv_up", "lmconv_down", "splat_blend"),
+                    "the relay gate")
+    for k, v in got.items():
+        if isinstance(v, (int, float)) and not k.endswith(("seconds", "time")):
+            log(f"[relay] {k}: port {v!r}, JAX report {jax_report.get(k)!r}")
+    for k in ("scene_gt_psnr_by_numerator", "scene_gt_psnr_by_direction"):
+        log(f"[relay] {k}: port {json.dumps(got[k])}")
+        log(f"[relay] {k}: JAX report {json.dumps(jax_report.get(k))}")
+    # tests/test_relay_artifact.py:138-154: a trained classifier is confident
+    # on fresh panorama views
+    ps = PixelSynth.from_stitched(ckpt, device=DEVICE)
+    shard = synthesize_pano_shard(np.random.default_rng(4242), 2, ps.W, 35.0,
+                                  pairs_per_world=2)
+    img = torch.as_tensor(shard["images"][:, 0].astype(np.float32) / 255.0, device=DEVICE)
+    with torch.no_grad():
+        logits = ps.classifier(preprocess_for_classifier(img))
+    entropy = float(classifier_entropy(logits).mean())
+    ln_classes = float(np.log(logits.shape[-1]))
+    log(f"[relay] classifier entropy on fresh views {entropy:.4f} "
+        f"(ln {logits.shape[-1]} = {ln_classes:.4f})")
+    failed = []
+    for name, holds in relay_floors(got, jax_report, entropy, ln_classes):
+        log(f"[relay] floor {name}: {'holds' if holds else 'FAILS'}")
+        if not holds:
+            failed.append(name)
+    if got["n_pairs"] != n_pairs or got["n_consistency_items"] != consistency_items \
+            or got["n_scene_views_scored"] != jax_report["n_scene_views_scored"]:
+        raise AssertionError("the relay gate did not run at the report's sizes")
+    if failed:
+        raise AssertionError(f"relay floors failed: {failed}")
+
+
 def main(argv):
     try:
         import torch
@@ -1185,9 +1465,11 @@ def main(argv):
     phase_k5(report)
     if not only_kernels:
         phase_view(report)
+        phase_view_f32()
         phase_engines(report)
         phase_view2(report)
         phase_walk()
+        phase_relay(report)
     log(f"[total] {time.perf_counter() - t0:.1f} s")
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"]

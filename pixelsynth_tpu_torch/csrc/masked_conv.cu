@@ -47,8 +47,10 @@
 // (masked_conv_f32_kernel): a block stages 8 positions' shifted rows per
 // tap in shared memory, each thread owns output channels, and the f32 FMAs
 // follow the plain version's order (per tap: the product, scaled by the
-// mask value, then accumulated).  It is there to hold the indexing to 1e-4
-// against the plain version, not for speed.
+// mask value, then accumulated); a tap whose mask is 0 at all 8 positions
+// is skipped (a 1x1 product run as a centre-tap conv pays for one tap).
+// It serves the f32 and out-of-shape routes of K1 and K4 and holds the
+// indexing to 1e-4 against the plain version; it is not built for speed.
 //
 // Bound on this card (pop 16, 32x32, Cin = Cout = 160): 2 * 9 * 16384 *
 // 160 * 160 = 7.5 GFLOP dense on bf16 tensor cores (7.6 us at 989
@@ -87,6 +89,16 @@ masked_conv_f32_kernel(const float* x, const float* mask, const float* w,
     for (int j = 0; j < MAXCO; ++j) acc[r][j] = 0.f;
 
   for (int t = 0; t < 9; ++t) {
+    float mt[PT];
+    bool on = false;
+#pragma unroll
+    for (int r = 0; r < PT; ++r) {
+      mt[r] = mask[((size_t)b * HW + p0 + r) * 9 + t];
+      on |= mt[r] != 0.f;
+    }
+    // a tap whose mask is 0 at all PT positions adds nothing: every thread
+    // reads the same values, so the whole block skips it together
+    if (!on) continue;
     const int dr = (t / 3 - 1) * d;
     const int dc = (t % 3 - 1) * d;
     __syncthreads();  // the previous tap's rows have been read
@@ -100,9 +112,6 @@ masked_conv_f32_kernel(const float* x, const float* mask, const float* w,
       xs[idx] = ok ? x[((size_t)b * HW + rr * W + cc) * Cin + c] : 0.f;
     }
     __syncthreads();
-    float mt[PT];
-#pragma unroll
-    for (int r = 0; r < PT; ++r) mt[r] = mask[((size_t)b * HW + p0 + r) * 9 + t];
 #pragma unroll
     for (int j = 0; j < MAXCO; ++j) {
       const int co = threadIdx.x + j * FT;

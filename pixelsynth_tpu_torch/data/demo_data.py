@@ -30,38 +30,37 @@ def demo_cameras(aspect_ratio: float = 1.0) -> Dict[str, np.ndarray]:
 def load_demo_image(path: str, W: int = 256) -> Tuple[np.ndarray, float]:
     """Image -> ((1, W, W, 3) float32 in [-1, 1], aspect ratio).
 
-    A .npy file holds an (H, W, 3) float image in [-1, 1] (no PIL needed;
-    resized bilinearly with torch); PNG/JPG go through PIL, imported here
-    for image I/O only."""
+    A .npy file holds an (H, W, 3) float image in [-1, 1]; a PNG is read by
+    eval/harness.py `load_png` (no PIL), other formats by PIL, as
+    uint8 / 255 * 2 - 1.  An image
+    that is not W x W is resized bilinearly with torch; one that is, is
+    taken as it is (as PIL's resize to the same size does)."""
+    from pixelsynth_tpu_torch.eval.harness import is_png, load_png
+
     if path.endswith(".npy"):
+        arr = np.load(path).astype(np.float32)
+    else:
+        if is_png(path):
+            u8 = load_png(path)[..., :3]
+        else:   # JPG and the rest: through PIL, where it is installed
+            from PIL import Image
+
+            u8 = np.asarray(Image.open(path).convert("RGB"))
+        arr = u8.astype(np.float32) / 255.0 * 2.0 - 1.0
+    ratio = arr.shape[1] / arr.shape[0]
+    if arr.shape[:2] != (W, W):
         import torch
         import torch.nn.functional as F
 
-        arr = np.load(path).astype(np.float32)
-        ratio = arr.shape[1] / arr.shape[0]
         x = torch.as_tensor(arr).permute(2, 0, 1)[None]
         x = F.interpolate(x, size=(W, W), mode="bilinear", align_corners=False)
-        return x[0].permute(1, 2, 0).numpy()[None], ratio
-    from PIL import Image
-
-    img = Image.open(path).convert("RGB")
-    ratio = img.size[0] / img.size[1]
-    arr = np.asarray(img.resize((W, W), Image.BILINEAR), np.float32) / 255.0
-    return (arr * 2.0 - 1.0)[None], ratio
+        arr = x[0].permute(1, 2, 0).numpy()
+    return arr[None], ratio
 
 
 def save_image(path: str, img: np.ndarray) -> str:
-    """(H, W, 3) in [-1, 1] -> PNG through PIL, or, where PIL is not
-    installed, the array as <path>.npy.  Returns the path written."""
-    import os
+    """(H, W, 3) in [-1, 1] -> an 8-bit RGB PNG through eval/harness.py
+    `save_png` (the JAX demo's writer and rule).  Returns the path."""
+    from pixelsynth_tpu_torch.eval.harness import save_png
 
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    try:
-        from PIL import Image
-    except ImportError:
-        path = os.path.splitext(path)[0] + ".npy"
-        np.save(path, np.asarray(img, np.float32))
-        return path
-    arr = np.clip((np.asarray(img) * 0.5 + 0.5) * 255.0 + 0.5, 0, 255)
-    Image.fromarray(arr.astype(np.uint8)).save(path)
-    return path
+    return save_png(path, np.asarray(img, np.float32))

@@ -7,9 +7,9 @@ Usage:
       [--num-split 2] [--num-samples 8] [--device cuda]
 
 Without --ckpt-dir the networks are initialized from --seed at the
-Config() defaults.  --img takes a PNG/JPG (through PIL) or an .npy
-(H, W, 3) array in [-1, 1]; outputs are PNGs, or .npy where PIL is not
-installed.
+Config() defaults.  --img takes a PNG (read without PIL), another image
+format (through PIL) or an .npy (H, W, 3) array in [-1, 1]; outputs are
+PNGs (eval/harness.py).
 """
 
 from __future__ import annotations

@@ -11,7 +11,11 @@ cooperative launch, a grid barrier between the two convs; bf16 matmul
 operands on wgmma, f32 elsewhere; the weights as the packed images of
 ops/conv_pack.py: `PackedTaps` made once by the caller, or plain weights
 packed at the call) and
-takes `gated_resnet_plain` for CPU tensors.  The plain version follows the
+takes `gated_resnet_plain` for CPU tensors.  On the card a call the K4
+kernel does not take (float32 compute, or a shape it cannot hold:
+`k4_route`) runs as the plain version runs it with both masked convs and
+the nin skip (a one-tap conv) launches of K3 (`gated_resnet_k3`).  The
+plain version follows the
 TPU kernel (`_kernel`, :71-89) step by step: `_elu` as
 where(x > 0, x, exp(min(x, 0)) - 1), `_pono` in its two-pass form with
 ddof 1 and eps 1e-5, elementwise maths in f32 with only the dot operands
@@ -28,10 +32,14 @@ from pixelsynth_tpu_torch.ops import _cuda
 from pixelsynth_tpu_torch.ops.conv_pack import TILE, TapsArg, prepare_taps, raw_taps
 from pixelsynth_tpu_torch.ops.masked_conv import mask_rows
 from pixelsynth_tpu_torch.ops.masked_conv_kernel import (
-    MaskArg, _cdt, masked_conv_taps, prepare_mask, raw_mask,
+    MaskArg, _cdt, centre_mask, centre_taps, k3_layer_conv, masked_conv_taps,
+    prepare_mask, raw_mask,
 )
 
-LAUNCHES = {"gated_resnet": 0}
+# launches of the kernel, calls of the "k3" route on the card (each three
+# or two K3 launches, which K3 counts), and calls that took the plain
+# version (CPU)
+LAUNCHES = {"gated_resnet": 0, "gated_resnet_k3": 0}
 PLAIN_CALLS = {"gated_resnet": 0}
 
 
@@ -70,6 +78,36 @@ def gated_resnet_plain(og, a, mask, w1, b1, w_skip, b_skip, w2, b2, *,
     return og + _pono(y[..., :Fc]) * torch.sigmoid(y[..., Fc:])
 
 
+def k4_route(H: int, W: int, Fc: int, compute_dtype: str) -> str:
+    """The route of a call on the card, by dtype and shape alone (never by
+    a failure): "fused", the K4 kernel, for bfloat16 compute with
+    H*W % 128 == 0, F % 16 == 0 and F <= 80; else "k3",
+    `gated_resnet_k3`."""
+    _cdt(compute_dtype)
+    if compute_dtype == "bfloat16" and (H * W) % TILE == 0 and Fc % 16 == 0 and Fc <= 80:
+        return "fused"
+    return "k3"
+
+
+def gated_resnet_k3(og, a, mask: MaskArg, w1: TapsArg, b1, w_skip: TapsArg,
+                    b_skip, w2: TapsArg, b2, *, compute_dtype="bfloat16"):
+    """`gated_resnet_plain` with each masked conv, and the nin skip as a
+    centre-tap conv, a K3 call (`k3_layer_conv`)."""
+    B, H, W, Fc = og.shape
+    pm = prepare_mask(mask)
+    og = og.float()
+
+    def conv(h, m, w, b):
+        return k3_layer_conv(h.contiguous(), m, w, b.float(), compute_dtype=compute_dtype)
+
+    x = _pono(conv(_concat_elu(og), pm, w1, b1))
+    if a is not None:
+        ws = centre_taps(raw_taps(w_skip).reshape(2 * Fc, Fc))
+        x = x + conv(_concat_elu(a.float()), centre_mask(B, H * W, og.device), ws, b_skip)
+    y = conv(_concat_elu(x), pm, w2, b2)
+    return og + _pono(y[..., :Fc]) * torch.sigmoid(y[..., Fc:])
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -90,22 +128,24 @@ def gated_resnet_kernel(og, a, mask: MaskArg, w1: TapsArg, b1, w_skip: TapsArg,
     not read and no skip term is added); mask (B, 9, H*W) or a
     PreparedMask; conv weights w1 (9, 2F, F), w_skip (2F, F), w2
     (9, 2F, 2F) in any float dtype, or their PackedTaps (w_skip packed as
-    (1, 2F, F)); biases f32.  Returns (B, H, W, F) f32.  Inference only."""
+    (1, 2F, F)); biases f32.  Returns (B, H, W, F) f32: one launch, or on
+    the "k3" route (`k4_route`) K3 launches.  Inference only."""
     if not og.is_cuda:
         PLAIN_CALLS["gated_resnet"] += 1
         return gated_resnet_plain(og, a, mask, w1, b1, w_skip, b_skip, w2, b2,
                                   compute_dtype=compute_dtype)
-    if compute_dtype != "bfloat16":
-        raise ValueError("the CUDA K4 kernel computes in bfloat16 only")
     if torch.is_grad_enabled() and (og.requires_grad or raw_taps(w1).requires_grad):
         raise ValueError("K4 serves inference only: no gradient")
     B, H, W, Fc = og.shape
     HW = H * W
     dev = og.device
-    if raw_taps(w1).shape[0] != 9 or HW % 128 or Fc % 16 or Fc > 80:
-        raise ValueError(
-            f"the K4 kernel takes 3x3 taps, H*W % 128 == 0, F % 16 == 0 and "
-            f"F <= 80; got HW={HW}, F={Fc}")
+    if raw_taps(w1).shape[0] != 9:
+        raise ValueError(f"K4 and K3 take 3x3 taps, got {raw_taps(w1).shape[0]}")
+    if k4_route(H, W, Fc, compute_dtype) == "k3":
+        out = gated_resnet_k3(og, a, mask, w1, b1, w_skip, b_skip, w2, b2,
+                              compute_dtype=compute_dtype)
+        LAUNCHES["gated_resnet_k3"] += 1
+        return out
     pm = prepare_mask(mask)
     f32, bf = torch.float32, torch.bfloat16
     _cuda.require(og, "og", dtype=f32, shape=(B, H, W, Fc))

@@ -8,7 +8,11 @@ embedding-gather first layer + PONO (PyTorch), the up pass (K1a: ->
 `up` / `down` launch the hand-written CUDA kernels of
 csrc/lmconv_fused.cu (one persistent launch a pass, csrc/lmconv_pass.cuh)
 for CUDA tensors and take their plain PyTorch
-versions `up_plain` / `down_plain` for CPU tensors.  The plain versions
+versions `up_plain` / `down_plain` for CPU tensors.  On the card a pass
+the K1 kernel does not take (float32 compute, or a shape it cannot hold:
+`k1_route`) runs as the plain version runs it with every masked conv, and
+the gated resnets' nin skip as a one-tap conv, a launch of K3
+(`up_k3` / `down_k3`).  The plain versions
 follow the TPU kernels' formulas step for step: a tap shift is a roll of
 the flat (HW, F) activation with wraparound zeroed by the boundary-folded
 masks, concat_elu as elu halves (`exp(-|x|) - 1`), PONO as
@@ -20,7 +24,7 @@ from __future__ import annotations
 
 import ctypes
 from collections import OrderedDict
-from typing import Callable, Dict
+from typing import Callable, Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -29,12 +33,18 @@ import torch.nn.functional as F
 from pixelsynth_tpu_torch.models.layers import pono
 from pixelsynth_tpu_torch.ops import _cuda
 from pixelsynth_tpu_torch.ops.conv_pack import (
-    TILE, pack_taps, resident_rows_fit, tile_tap_table,
+    TILE, pack_taps, prepare_taps, resident_rows_fit, tile_tap_table,
 )
 from pixelsynth_tpu_torch.ops.masked_conv import locally_masked_embed
+from pixelsynth_tpu_torch.ops.masked_conv_kernel import (
+    PreparedMask, centre_mask, centre_taps, k3_dtype, k3_layer_conv,
+)
 
-# launches of each CUDA kernel, counted by its wrapper
-LAUNCHES = {"lmconv_up": 0, "lmconv_down": 0}
+# launches of each CUDA kernel, counted by its wrapper, and passes of the
+# "k3" route on the card (each a stack of K3 launches, which K3 counts);
+# calls that took the plain version (CPU)
+LAUNCHES = {"lmconv_up": 0, "lmconv_down": 0, "lmconv_up_k3": 0, "lmconv_down_k3": 0}
+PLAIN_CALLS = {"lmconv_up": 0, "lmconv_down": 0}
 
 
 def _cdt(compute_dtype: str) -> torch.dtype:
@@ -239,6 +249,143 @@ def down_plain(stack, mu, md, packed, *, W, nr, dilation, compute_dtype):
 
 
 # ---------------------------------------------------------------------------
+# the "k3" route: a pass whose convs are K3 launches
+# ---------------------------------------------------------------------------
+
+
+def k1_route(H: int, W: int, Fc: int, nr: int, dilation: int,
+             compute_dtype: str) -> str:
+    """The route of a pass on the card, by dtype and shape alone (never by
+    a failure): "fused", the K1 kernel, for bfloat16 compute with
+    H*W % 128 == 0, F % 16 == 0 and F <= 80, 1 <= nr <= 4, and a tile's
+    rows and halo within the resident rows (`rows_fit`: W <= 44 at F = 80);
+    else "k3": `up_k3` / `down_k3`, each conv on K3's kernel of
+    `k3_dtype`."""
+    if (compute_dtype == "bfloat16" and (H * W) % TILE == 0 and Fc % 16 == 0
+            and Fc <= 80 and 1 <= nr <= 4 and rows_fit(W, dilation, Fc)):
+        return "fused"
+    return "k3"
+
+
+class K3Masks(NamedTuple):
+    """The masks of a "k3" pass in K3's layout: the folded masks of the
+    dilation-1 and the dilated convs, and the centre-tap mask of the nin
+    skip."""
+
+    mu: PreparedMask
+    md: PreparedMask
+    centre: PreparedMask
+
+
+def _prepared(rows: torch.Tensor) -> PreparedMask:
+    taps = tile_tap_table(rows) if rows.shape[1] % TILE == 0 else None
+    return PreparedMask(rows, rows.transpose(1, 2), taps, {})
+
+
+def k3_masks(mu: torch.Tensor, md: torch.Tensor) -> K3Masks:
+    """Folded masks (B, HW, 9) -> `K3Masks`: a sampling loop makes them once."""
+    B, HW, _ = mu.shape
+    return K3Masks(_prepared(mu), _prepared(md), centre_mask(B, HW, mu.device))
+
+
+# the pass's conv weights and their biases
+_BIAS = {"uw1": "ub1", "uw2": "ub2", "udw": "udb", "dw1": "db1", "dw2": "db2",
+         "ddw": "ddb", "dws": "dbs"}
+
+
+def _k3_weights(packed: Dict, kernel_dtype: str, compute_dtype: str) -> Dict:
+    """{weight name: [(weights, bias) a layer]} as K3 takes them, made once
+    per packed dict (kept in it, so a call's checks are cached on the
+    masks): PackedTaps for K3's bf16 kernel, f32 (rounded to bf16 for bf16
+    compute) for its f32 kernel; the nin skip as centre taps."""
+    cache = packed.setdefault("k3_weights", {})
+    key = (kernel_dtype, compute_dtype)
+    if key not in cache:
+        Fc = packed["uw1"].shape[-1]
+
+        def prep(w):
+            if kernel_dtype == "bfloat16":
+                return prepare_taps(w, Fc)
+            w = w.float()
+            if compute_dtype == "bfloat16":
+                w = w.to(torch.bfloat16).float()
+            return w.contiguous()
+
+        cache[key] = {
+            name: [(prep(centre_taps(w) if name == "dws" else w), b)
+                   for w, b in zip(packed[name], packed[bias].unbind(0))]
+            for name, bias in _BIAS.items()}
+    return cache[key]
+
+
+def _k3_conv(packed, masks: K3Masks, *, B, H, W, dilation, compute_dtype):
+    """conv(h (B, HW, K) f32, weight name, layer) -> (B, HW, N) f32 through
+    K3, with that weight's mask and dilation."""
+    Fc = packed["uw1"].shape[-1]
+    weights = _k3_weights(packed, k3_dtype(H * W, 2 * Fc, Fc, compute_dtype),
+                          compute_dtype)
+
+    def conv(h, name, i):
+        if name in ("udw", "ddw"):
+            m, d = masks.md, dilation
+        else:
+            m, d = (masks.centre if name == "dws" else masks.mu), 1
+        w, b = weights[name][i]
+        y = k3_layer_conv(h.reshape(B, H, W, -1), m, w, b, dilation=d,
+                          compute_dtype=compute_dtype)
+        return y.reshape(B, H * W, -1)
+
+    return conv
+
+
+def _gated_k3(og, a, conv, pre, g):
+    """`_gated` with K3 convs: the concat_elu halves side by side as one
+    K = 2F operand, the dual conv as one N = 2F output."""
+    Fc = og.shape[-1]
+    x = _pono_dot(conv(torch.cat(_elu_halves(og), -1), f"{pre}w1", g))
+    if a is not None:
+        x = x + conv(torch.cat(_elu_halves(a), -1), "dws", g)
+    z = conv(torch.cat(_elu_halves(x), -1), f"{pre}w2", g)
+    return og + _pono_dot(z[..., :Fc]) * torch.sigmoid(z[..., Fc:])
+
+
+def up_k3(u0, mu, md, packed, *, H, W, nr, dilation, compute_dtype, masks=None):
+    """The up pass as `up_plain`, every conv a K3 call.  masks: `k3_masks`
+    of (mu, md), made here when not given."""
+    conv = _k3_conv(packed, masks or k3_masks(mu, md), B=u0.shape[0], H=H, W=W,
+                    dilation=dilation, compute_dtype=compute_dtype)
+    u = u0.float()
+    out = [u]
+    g = 0
+    for blk in range(3):
+        for _ in range(nr):
+            u = _gated_k3(u, None, conv, "u", g)
+            out.append(u)
+            g += 1
+        if blk < 2:
+            u = _pono_dot(conv(u, "udw", blk))
+            out.append(u)
+    return torch.stack(out, dim=1).to(torch.bfloat16)
+
+
+def down_k3(stack, mu, md, packed, *, H, W, nr, dilation, compute_dtype, masks=None):
+    """The down pass as `down_plain`, every conv a K3 call."""
+    conv = _k3_conv(packed, masks or k3_masks(mu, md), B=stack.shape[0], H=H, W=W,
+                    dilation=dilation, compute_dtype=compute_dtype)
+    u = stack[:, 3 * nr + 2].float()
+    top = 3 * nr + 1
+    g = 0
+    for i, n in enumerate((nr, nr + 1, nr + 1)):
+        for _ in range(n):
+            u = _gated_k3(u, stack[:, top].float(), conv, "d", g)
+            g += 1
+            top -= 1
+        if i < 2:
+            u = _pono_dot(conv(u, "ddw", i))
+    return u
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -366,18 +513,13 @@ def workspace(B: int, HW: int, Fc: int, device) -> Workspace:
 STAMPS = {"buffer": None}
 
 
-def _check_call(x, mu, md, packed, tables, *, H, W, nr, dilation, compute_dtype):
-    """The per-call checks of `up` / `down`: shapes of the activations and
-    masks; the packed weights only when not checked yet for this nr."""
+def _check_call(x, mu, md, packed, tables, *, H, W, nr):
+    """The per-call checks of a K1 launch (`k1_route` has taken its dtype
+    and shape): shapes of the activations and masks; the packed weights
+    only when not checked yet for this nr."""
     B, HW, Fc = x.shape[0], x.shape[-2], x.shape[-1]
-    if compute_dtype != "bfloat16":
-        raise ValueError("the CUDA K1 kernel computes in bfloat16 only")
-    if HW != H * W or HW % TILE or Fc % 16 or Fc > 80 or not 1 <= nr <= 4:
-        raise ValueError(f"K1 kernel needs HW % 128 == 0, F % 16 == 0, F <= 80 "
-                         f"and 1 <= nr <= 4, got HW={HW}, F={Fc}, nr={nr}")
-    if not rows_fit(W, dilation, Fc):
-        raise ValueError(f"K1 kernel: a tile's rows and halo at width W={W}, "
-                         f"dilation {dilation}, F={Fc} exceed its shared memory")
+    if HW != H * W:
+        raise ValueError(f"K1: {HW} positions for a {H}x{W} grid")
     checked = packed.get("k1_checked")
     if checked is None or checked[0] != nr:
         check_packed(packed, nr)
@@ -408,13 +550,21 @@ def _stamps():
 def up(u0, mu, md, packed, *, H, W, nr, dilation, compute_dtype="bfloat16",
        tables=None):
     """K1a.  u0 (B, HW, F) f32, mu/md (B, HW, 9) folded masks -> skip stack
-    (B, 3nr+3, HW, F) bf16: one launch.  tables: `tile_tables(mu, md)`,
-    made at this call when not given."""
+    (B, 3nr+3, HW, F) bf16: one launch, or on the "k3" route (`k1_route`)
+    a stack of K3 launches.  tables: `tile_tables(mu, md)` for the K1
+    kernel, `k3_masks(mu, md)` for the "k3" route; made at this call when
+    not given."""
     if not u0.is_cuda:
+        PLAIN_CALLS["lmconv_up"] += 1
         return up_plain(u0, mu, md, packed, W=W, nr=nr, dilation=dilation,
                         compute_dtype=compute_dtype)
-    B, HW, Fc, tu, td = _check_call(u0, mu, md, packed, tables, H=H, W=W, nr=nr,
-                                    dilation=dilation, compute_dtype=compute_dtype)
+    if k1_route(H, W, u0.shape[-1], nr, dilation, compute_dtype) == "k3":
+        out = up_k3(u0, mu, md, packed, H=H, W=W, nr=nr, dilation=dilation,
+                    compute_dtype=compute_dtype,
+                    masks=tables if isinstance(tables, K3Masks) else None)
+        LAUNCHES["lmconv_up_k3"] += 1
+        return out
+    B, HW, Fc, tu, td = _check_call(u0, mu, md, packed, tables, H=H, W=W, nr=nr)
     _cuda.require(u0, "u0", dtype=torch.float32, shape=(B, HW, Fc))
     if packed["uw1"].requires_grad or u0.requires_grad:
         raise ValueError("K1 serves inference only: no gradient")
@@ -436,12 +586,18 @@ def up(u0, mu, md, packed, *, H, W, nr, dilation, compute_dtype="bfloat16",
 def down(stack, mu, md, packed, *, H, W, nr, dilation,
          compute_dtype="bfloat16", tables=None):
     """K1b.  skip stack (B, 3nr+3, HW, F) bf16 -> (B, HW, F) f32: one
-    launch.  tables as for `up`."""
+    launch, or the "k3" route.  tables as for `up`."""
     if not stack.is_cuda:
+        PLAIN_CALLS["lmconv_down"] += 1
         return down_plain(stack, mu, md, packed, W=W, nr=nr,
                           dilation=dilation, compute_dtype=compute_dtype)
-    B, HW, Fc, tu, td = _check_call(stack, mu, md, packed, tables, H=H, W=W, nr=nr,
-                                    dilation=dilation, compute_dtype=compute_dtype)
+    if k1_route(H, W, stack.shape[-1], nr, dilation, compute_dtype) == "k3":
+        out = down_k3(stack, mu, md, packed, H=H, W=W, nr=nr, dilation=dilation,
+                      compute_dtype=compute_dtype,
+                      masks=tables if isinstance(tables, K3Masks) else None)
+        LAUNCHES["lmconv_down_k3"] += 1
+        return out
+    B, HW, Fc, tu, td = _check_call(stack, mu, md, packed, tables, H=H, W=W, nr=nr)
     _cuda.require(stack, "stack", dtype=torch.bfloat16,
                   shape=(B, 3 * nr + 3, HW, Fc))
     ws = workspace(B, HW, Fc, stack.device)
@@ -514,8 +670,12 @@ def make_fused_logits_fn(packed: Dict, masks: torch.Tensor, *,
     m_init = masks[:, 0]
     mu = fold_boundary_masks(masks[:, 1], side, side, k, 1)
     md = fold_boundary_masks(masks[:, 2], side, side, k, max_dilation)
-    # the kernels' (tile, tap) tables, made once here beside the masks
-    tables = tile_tables(mu, md) if HW % TILE == 0 else None
+    # the route's masks and tables, made once here beside the masks
+    tables = None
+    if masks.is_cuda:
+        route = k1_route(side, side, packed["uw1"].shape[-1], nr_resnet,
+                         max_dilation, compute_dtype)
+        tables = tile_tables(mu, md) if route == "fused" else k3_masks(mu, md)
     kw = dict(H=side, W=side, nr_resnet=nr_resnet, max_dilation=max_dilation,
               num_classes=num_classes, compute_dtype=compute_dtype,
               tables=tables)

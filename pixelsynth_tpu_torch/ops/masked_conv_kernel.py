@@ -269,6 +269,54 @@ def locally_masked_conv2d_kernel(x, mask: MaskArg, weight: TapsArg, bias=None, *
     return out
 
 
+def k3_dtype(HW: int, cin: int, cout: int, compute_dtype: str) -> str:
+    """Which K3 kernel serves a conv of a layer stack that runs through K3
+    (the "k3" routes of K1 and K4), by dtype and shape alone:
+    "bfloat16" (the tensor-core kernel, whose route `k3_route` picks) for
+    bf16 compute where that kernel takes the shape (H*W % 128 == 0 and
+    `kernel_width`), else "float32" (the CUDA-core kernel; for bf16 compute
+    `k3_layer_conv` rounds x and the weights to bf16 first, so it sums the
+    same products in f32)."""
+    _cdt(compute_dtype)
+    if compute_dtype == "bfloat16" and HW % TILE == 0 and kernel_width(cin, cout):
+        return "bfloat16"
+    return "float32"
+
+
+def k3_layer_conv(x, mask: MaskArg, weight: TapsArg, bias, *, dilation: int = 1,
+                  compute_dtype: str = "bfloat16"):
+    """One masked conv of a layer stack through K3's kernel of `k3_dtype`
+    (on the card; the plain version on the CPU).  x (B, H, W, Cin) f32;
+    weight (9, Cin, Cout) or its PackedTaps.  -> (B, H, W, Cout) f32."""
+    B, H, W, Cin = x.shape
+    kd = k3_dtype(H * W, Cin, raw_taps(weight).shape[-1], compute_dtype)
+    if kd != compute_dtype:
+        x = x.to(torch.bfloat16).float()
+        weight = raw_taps(weight).to(torch.bfloat16).float()
+    return locally_masked_conv2d_kernel(x, mask, weight, bias, dilation=dilation,
+                                        compute_dtype=kd)
+
+
+CENTRE = 4   # the centre tap of a 3x3 conv
+
+
+def centre_mask(B: int, HW: int, device) -> PreparedMask:
+    """The mask of a 1x1 product run as a masked conv: the centre tap on at
+    every position, every other tap off (no ring step, no FMA for them)."""
+    rows = torch.zeros((B, HW, 9), dtype=torch.float32, device=device)
+    rows[..., CENTRE] = 1.0
+    taps = tile_tap_table(rows) if HW % TILE == 0 else None
+    return PreparedMask(rows, rows.transpose(1, 2), taps, {})
+
+
+def centre_taps(w: torch.Tensor) -> torch.Tensor:
+    """(Cin, Cout) weights of a 1x1 product -> (9, Cin, Cout) taps with w
+    at the centre and zeros elsewhere."""
+    taps = torch.zeros((9,) + tuple(w.shape), dtype=w.dtype, device=w.device)
+    taps[CENTRE] = w
+    return taps
+
+
 def masked_conv_backward(g, x, mask, weight, dilation: int):
     """(dx, dW, db) of out[p] = sum_t m_t[p] * (x[p + o_t] @ W_t) + b for the
     cotangent g (B, H, W, Cout), in f32 (`_lmconv_bwd`):

@@ -38,6 +38,7 @@ from pixelsynth_tpu_torch.config import SplatConfig
 from pixelsynth_tpu_torch.ops import _cuda
 
 LAUNCHES = {"splat_blend": 0}
+PLAIN_CALLS = {"splat_blend": 0}   # calls that took the plain version (CPU)
 _ACCUM = {"alphacomposite": 0, "wsum": 1, "wsumnorm": 2}
 
 
@@ -380,6 +381,7 @@ def blend_slots(points, feats, slot_idx, slot_valid, W: int, cfg: SplatConfig):
     f32, C <= 8; slot_idx int64; tile_size a multiple of 8 up to 32); on
     the CPU `blend_slots_plain`."""
     if not points.is_cuda:
+        PLAIN_CALLS["splat_blend"] += 1
         return blend_slots_plain(points, feats, slot_idx, slot_valid, W, cfg)
     if points.requires_grad or feats.requires_grad:
         raise ValueError("the K2 blend serves inference only: no gradient")

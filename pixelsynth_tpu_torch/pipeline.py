@@ -246,6 +246,38 @@ class PixelSynth:
             return 1.0 / (torch.sigmoid(raw) * 10.0 + 0.01)
         return torch.sigmoid(raw) * (mc.max_z - mc.min_z) + mc.min_z
 
+    def features(self, img: torch.Tensor) -> torch.Tensor:
+        """The point features: the image itself (the port serves RGB point
+        features only; `build_modules` refuses an encoder)."""
+        return img
+
+    def splat_view(self, fs, depth, cams):
+        """Project view-1 features into the output camera and splat.
+        cams: K, Kinv, P_in, Pinv_in, P_out, each (B, 4, 4).  Returns
+        (gen_fs (B, W, W, C), background (B, W, W) bool, cloud (B, N, 4))."""
+        B = fs.shape[0]
+        cloud = lift_to_cloud(depth, cams["K"], cams["Kinv"], cams["Pinv_in"],
+                              cams["P_out"], self.W)
+        pts, valid = homogeneous_to_pixels(cloud, self.W)
+        gen_fs, bg = splat(pts, fs.reshape(B, -1, fs.shape[-1]), valid, W=self.W,
+                           cfg=self.cfg.model.splat)
+        return gen_fs, bg, cloud.transpose(1, 2)
+
+    @torch.no_grad()
+    def render_no_outpaint(self, img, cams, *, noise_scale: float = 1.0,
+                           gen: Optional[torch.Generator] = None):
+        """The no-outpainting path (z_buffermodel.py:382-383): depth ->
+        lift -> splat -> the refinement decoder, whose noise draws come
+        from `gen`.  The decoder is built with the foreground-channel
+        input, so the mask is passed unless the config has
+        `no_outpainting`."""
+        depth = self.regress_depth(img)
+        fs = self.features(img)
+        gen_fs, bg, _ = self.splat_view(fs, depth, cams)
+        gen_img = self.decode_image(gen_fs, bg, noise_scale=noise_scale, gen=gen)
+        return {"PredImg": gen_img, "PredDepth": depth, "Background": bg,
+                "FeaturesImg": gen_fs}
+
     def splat_cumulative(self, fs, depth, cams, state: CloudState,
                          last_bg: Optional[torch.Tensor], RTinv_last):
         """Cumulative-scene splat (pipeline.py:327-373): the prior cloud in

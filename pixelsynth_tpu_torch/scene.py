@@ -123,7 +123,7 @@ class SceneGenerator:
         ps, S, T = self.ps, self.num_samples, self.timer
         with T("depth"):
             depth = ps.regress_depth(img)
-        fs = img
+        fs = ps.features(img)
         with T("splat"):
             gen_fs, bg, new_cloud = ps.splat_cumulative(fs, depth, cams, cloud,
                                                         last_bg, RTinv_last)
@@ -246,6 +246,57 @@ class SceneGenerator:
                 cloud, last_bg, RTinv_last = out["cloud"], out["bg"], cout_inv
                 last_num, last_dir = num, direction
         outputs["CloudValidCount"] = cloud.valid.sum(1)
+        return {k: v.cpu().numpy() for k, v in outputs.items()}
+
+
+def batch_rt_from_rot(directions: List[str], input_RT, num, denom):
+    """Per-item camera paths: `get_rt_from_rot` over a batch whose
+    direction differs per item (the consistency eval's per-index fixed
+    directions, eval_consistency.py:101-149).  -> (RTinv, RT), each
+    (B, 4, 4) float32 numpy."""
+    input_RT = np.asarray(input_RT)
+    invs, rts = [], []
+    for b, d in enumerate(directions):
+        inv, rt = get_rt_from_rot(d, input_RT[b], num, denom)
+        invs.append(inv)
+        rts.append(rt)
+    return np.stack(invs), np.stack(rts)
+
+
+class TwoImageGenerator(SceneGenerator):
+    """Batched gen_two_imgs: the full and the half rotation of each item,
+    each item in its own direction; the whole batch advances through one
+    sampling population per view (the reference renders one item at a
+    time, forward_scene with num_split=2, z_buffermodel.py:425-453)."""
+
+    def generate_two_imgs(self, img, K, Kinv, P_in, Pinv_in,
+                          directions: List[str], seed: int = 0) -> Dict[str, np.ndarray]:
+        """img (B, W, W, 3) in [-1, 1]; K, Kinv, P_in, Pinv_in (B, 4, 4);
+        directions: B names.  Renders numerators 2, 1, 0 of 2 in turn,
+        carrying the cloud, the background and the carried image as
+        `generate_scene` does.  Returns {"PredImg_2": full rotation,
+        "PredImg_1": half, "PredImg_0": back at the input pose}."""
+        P_in, Pinv_in = np.asarray(P_in), np.asarray(Pinv_in)
+        img = self._dev(img)
+        cloud = CloudState.empty(img.shape[0], self.cloud_capacity, img.shape[-1],
+                                 self.device)
+        seeds = torch.Generator().manual_seed(int(seed))
+        scene_noise = (int(torch.randint(1 << 62, (1,), generator=seeds))
+                       if self.noise_mode == "fixed" else None)
+        outputs: Dict[str, torch.Tensor] = {}
+        current, last_bg, RTinv_last = img, None, Pinv_in
+        cin, cin_inv = P_in, Pinv_in
+        for num in (2, 1, 0):
+            cout_inv, cout = batch_rt_from_rot(directions, P_in, num, 2)
+            cams = {"K": K, "Kinv": Kinv, "P_in": cin, "Pinv_in": cin_inv,
+                    "P_out": cout}
+            view_seed = int(torch.randint(1 << 62, (1,), generator=seeds))
+            best, out = self.generate_view(current, cams, cloud, last_bg, RTinv_last,
+                                           view_seed, scene_noise)
+            outputs[f"PredImg_{num}"] = best
+            current = out["best_carry"]
+            cloud, last_bg, RTinv_last = out["cloud"], out["bg"], cout_inv
+            cin, cin_inv = cout, cout_inv
         return {k: v.cpu().numpy() for k, v in outputs.items()}
 
 

@@ -51,6 +51,37 @@ def test_k1_rounds_and_two_tiles_on_card(B, side):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,side,Fc,dtype", [
+    (4, 32, 80, "float32"), (2, 48, 80, "bfloat16"), (4, 12, 80, "bfloat16"),
+    (4, 16, 96, "bfloat16")])
+def test_k1_k3_route_on_card(B, side, Fc, dtype):
+    """K1's "k3" route (f32 compute; rows beyond the resident region,
+    HW % 128 != 0, F > 80 in bf16) through `up` / `down` against the plain
+    versions: 14 / 26 K3 launches a pass, no K1 launch, no plain version;
+    f32 down within 1e-4 and each up entry within 1e-4 or one bf16 ulp,
+    bf16 at K1's tolerance."""
+    _need_card()
+    import chip_smoke
+
+    chip_smoke._k1_route_check(f"({B}, {side}) F={Fc}", B, side, Fc, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,side,Fc,dtype", [
+    (4, 32, 80, "float32"), (4, 12, 80, "bfloat16"), (4, 16, 96, "bfloat16")])
+def test_k4_k3_route_on_card(B, side, Fc, dtype):
+    """K4's "k3" route through `gated_resnet_kernel`, with and without the
+    skip, against the plain version: f32 within 1e-4, bf16 at K4's
+    tolerance."""
+    _need_card()
+    import torch
+    import chip_smoke
+
+    chip_smoke._k4_route_check(f"({B}, {side}) F={Fc}", B, side, Fc, dtype,
+                               torch.Generator().manual_seed(4))
+
+
+@pytest.mark.gpu
 def test_k2_matches_plain_on_card():
     """K2 from the binner's tables, every accumulation, at the bench
     protocol's size; coverage on points at the radius from the edges of its

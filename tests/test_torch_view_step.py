@@ -200,3 +200,128 @@ def test_one_direction_walk_matches_jax(gens):
     # but 1% of its values within 2e-3.
     close = np.abs(got["PredImg_R_0"] - want["PredImg_R_0"]) <= 2e-3
     assert close.mean() >= 0.99, close.mean()
+
+
+def _cams_R(num=2, denom=2):
+    I = np.eye(4, dtype=np.float32)[None]
+    _, RT = get_rt_from_rot("R", I, num, denom)
+    return {"K": I, "Kinv": I, "P_in": I, "Pinv_in": I, "P_out": RT}
+
+
+def test_splat_view_and_render_no_outpaint_match_jax(gens):
+    """The no-outpaint path (depth -> lift -> splat -> decoder) and its
+    splat, without decoder noise on both sides (their noise streams
+    differ)."""
+    jps, _, gen, variables = gens
+    ps = gen.ps
+    img = _input(1)
+    cams = _cams_R()
+    jcams = {k: jnp.asarray(v) for k, v in cams.items()}
+    tcams = {k: torch.as_tensor(v) for k, v in cams.items()}
+
+    @jax.jit
+    def jax_side(v, x, c):
+        depth, _ = jps.regress_depth(v["unet"], x)
+        return jps.splat_view(x, depth, c), jps.render_no_outpaint(
+            v, x, c, rngs={"noise": jax.random.PRNGKey(0)}, noise_scale=0.0)
+
+    (fs_j, bg_j, cloud_j), want = jax_side(variables, jnp.asarray(img), jcams)
+    with torch.no_grad():
+        t_img = torch.as_tensor(img)
+        fs, bg, cloud = ps.splat_view(ps.features(t_img), ps.regress_depth(t_img), tcams)
+    np.testing.assert_allclose(fs.numpy(), np.asarray(fs_j), atol=5e-4, rtol=1e-3)
+    np.testing.assert_array_equal(bg.numpy(), np.asarray(bg_j))
+    np.testing.assert_allclose(cloud.numpy(), np.asarray(cloud_j), atol=1e-4, rtol=1e-5)
+
+    got = ps.render_no_outpaint(t_img, tcams, noise_scale=0.0)
+    assert sorted(got) == sorted(want)
+    np.testing.assert_allclose(got["PredDepth"].numpy(), np.asarray(want["PredDepth"]),
+                               atol=1e-5, rtol=1e-5)
+    np.testing.assert_array_equal(got["Background"].numpy(), np.asarray(want["Background"]))
+    np.testing.assert_allclose(got["FeaturesImg"].numpy(), np.asarray(want["FeaturesImg"]),
+                               atol=5e-4, rtol=1e-3)
+    np.testing.assert_allclose(got["PredImg"].numpy(), np.asarray(want["PredImg"]), atol=2e-3)
+
+
+@pytest.mark.filterwarnings("ignore:SceneGenerator")
+def test_two_imgs_matches_jax(gens):
+    """gen_two_imgs on one item: the full and the half rotation, then back
+    at the input pose.  The JAX side runs its `generate_two_imgs` on the
+    fixture's generator (same settings, its compiled view step)."""
+    from pixelsynth_tpu.scene import TwoImageGenerator as JaxTwoImageGenerator
+    from pixelsynth_tpu_torch.scene import TwoImageGenerator
+
+    _, jgen, gen, _ = gens
+    img = _input(3)
+    I = np.eye(4, dtype=np.float32)[None]
+    want = JaxTwoImageGenerator.generate_two_imgs(jgen, jnp.asarray(img), I, I, I, I,
+                                                  ["UR"], rng=jax.random.PRNGKey(5))
+    got = TwoImageGenerator(gen.ps, **KW).generate_two_imgs(img, I, I, I, I, ["UR"],
+                                                            seed=5)
+    assert sorted(got) == sorted(want) == ["PredImg_0", "PredImg_1", "PredImg_2"]
+    # Every value within 2e-3 but at most two of the 12288 a view: this
+    # fixture's random refinement decoder grows its activations to ~1e5
+    # (median |pre-tanh| 7e4), so tanh saturates everywhere except at the
+    # odd pixel whose pre-tanh value is a near-zero cancellation of such
+    # terms, where float32 summation order alone moves the output by up to
+    # 0.24 (the decoder on identical inputs in both frameworks; one such
+    # value in the half-rotation view of this input, in 2 of 5 inputs tried)
+    for k in ("PredImg_2", "PredImg_1"):
+        far = np.abs(got[k] - want[k]) > 2e-3
+        assert far.sum() <= 2, (k, np.argwhere(far))
+    # back at the input pose: float-sensitive in both frameworks, held as
+    # test_one_direction_walk_matches_jax holds its input-pose view
+    close = np.abs(got["PredImg_0"] - want["PredImg_0"]) <= 2e-3
+    assert close.mean() >= 0.99, close.mean()
+
+
+@pytest.mark.filterwarnings("ignore:SceneGenerator")
+def test_relay_evals_match_jax(gens, monkeypatch):
+    """The relay report's paired eval and two-image consistency on two
+    held-out pairs, in batches of one, against the JAX package's, within
+    1e-2 dB.  Decoder noise is zero on both sides (their noise streams
+    differ): the paired eval's baseline draws noise at scale 1 in both
+    packages, so each side's `render_no_outpaint` is handed noise_scale=0;
+    the JAX consistency eval's
+    generator is the fixture's (same samples, temperature and zero noise,
+    its compiled view step), and the port's config has noise "zero"."""
+    import functools
+    import types
+
+    import pixelsynth_tpu.scene as jax_scene
+    from pixelsynth_tpu.eval import relay_report as jrelay
+    from pixelsynth_tpu_torch.data.panorama import val_pairs
+    from pixelsynth_tpu_torch.eval import relay_report
+
+    jps, jgen, gen, variables = gens
+    batches = relay_report.val_batches(val_pairs(W, 2), 1)
+    jps_nop = types.SimpleNamespace(W=jps.W, render_no_outpaint=jax.jit(
+        functools.partial(jps.render_no_outpaint, noise_scale=0.0)))
+    want = jrelay.paired_eval(jps_nop, variables, jgen, batches)
+    ps_nop = types.SimpleNamespace(W=gen.ps.W, device=gen.ps.device,
+                                   render_no_outpaint=functools.partial(
+                                       gen.ps.render_no_outpaint, noise_scale=0.0))
+    got = relay_report.paired_eval(ps_nop, gen, batches)
+    assert sorted(got) == sorted(want) and got["n_pairs"] == want["n_pairs"] == 2
+    for k, v in want.items():
+        if v is None:
+            assert got[k] is None, k
+        else:
+            assert abs(got[k] - v) < 1e-2, (k, got[k], v)
+
+    two_imgs = jax_scene.TwoImageGenerator.generate_two_imgs
+
+    def fixture_generator(ps, variables, *, num_samples, temperature, classifier_vars):
+        assert (num_samples, temperature) == (jgen.num_samples, jgen.temperature)
+        return types.SimpleNamespace(generate_two_imgs=functools.partial(two_imgs, jgen))
+
+    monkeypatch.setattr(jax_scene, "TwoImageGenerator", fixture_generator)
+    want = jrelay.two_image_consistency(jps, variables, batches, 2, 1e-4, max_items=2)
+    cfg = tiny(Config())
+    cfg.sample.noise_mode = "zero"
+    ps = PixelSynth(cfg, device="cpu",
+                    state_dicts=from_jax_params(jax.device_get(variables), cfg))
+    got = relay_report.two_image_consistency(ps, batches, 2, 1e-4, max_items=2)
+    assert got["n_consistency_items"] == want["n_consistency_items"] == 2
+    for k in ("consistency_psnr_vis", "consistency_overlap_frac"):
+        assert abs(got[k] - want[k]) < 1e-2, (k, got[k], want[k])
