@@ -47,7 +47,8 @@ prints the final ok line):
      report's sizes, K1, K2), held to the floors of
      tests/test_relay_artifact.py beside the JAX report's numbers.
 Each path's launch counts (and the wrappers' counts of plain-version
-calls) are zeroed just before it is driven and read just after.  The script ends with a `kernels` JSON line, the card's name
+calls) are zeroed just before it is driven and read just after.  The
+script ends with a `kernels` JSON line, the card's name
 and power limit, and the result line {"ok": true, "device": {...}}.
 
 TF32 is off for both matmuls and convolutions (set below), so float32
@@ -250,8 +251,9 @@ def _k1_route_check(tag, B, side, Fc, compute_dtype, timed=False):
     compute, so where the two f32 sums straddle a bf16 rounding boundary an
     entry differs by one bf16 ulp: every entry within atol 1e-4 or one
     bf16 ulp of its value, and the logits of the whole forward (the k3
-    stack through the k3 down) agree in argmax >= 0.99.  bfloat16: K1's own tolerance (2% of the range, argmax
-    >= 0.97).  Returns (max error, {pass: ms} when timed)."""
+    stack through the k3 down) agree in argmax >= 0.99.  bfloat16: K1's
+    own tolerance (2% of the range, argmax >= 0.97).  Returns (max error,
+    {pass: ms} when timed)."""
     import torch
     from pixelsynth_tpu_torch.ops import lmconv_fused as K1
 

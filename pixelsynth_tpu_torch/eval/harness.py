@@ -4,8 +4,8 @@ and its reader): the machines the port runs on need not have PIL.
 `save_png` writes an 8-bit RGB PNG from zlib and struct alone, after the
 JAX package's rule: an image with values below -0.01 is taken as [-1, 1]
 and mapped to [0, 1], then np.clip(x * 255, 0, 255).astype(uint8)
-(truncation).  `load_png` reads non-interlaced 8-bit grey, RGB and RGBA
-PNGs with any of the five row filters: the port's own files and those PIL
+(truncation).  `load_png` reads non-interlaced 8-bit RGB and RGBA PNGs
+with any of the five row filters: the port's own files and those PIL
 writes."""
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import zlib
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}   # colour type -> samples a pixel
+_CHANNELS = {2: 3, 6: 4}   # colour type (RGB, RGBA) -> samples a pixel
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -92,7 +92,7 @@ def _unfilter(raw: bytes, H: int, stride: int, bpp: int) -> np.ndarray:
 
 
 def decode_png(data: bytes) -> np.ndarray:
-    """The bytes of a PNG -> (H, W, C) uint8, C = 1, 2, 3 or 4."""
+    """The bytes of a PNG -> (H, W, C) uint8, C = 3 or 4."""
     if data[:8] != _SIGNATURE:
         raise ValueError("not a PNG file")
     pos, idat, header = 8, [], None
@@ -111,7 +111,7 @@ def decode_png(data: bytes) -> np.ndarray:
     W, H, depth, ctype, _, _, interlace = header
     if depth != 8 or ctype not in _CHANNELS or interlace:
         raise ValueError(f"PNG of depth {depth}, colour type {ctype}, interlace "
-                         f"{interlace}: only non-interlaced 8-bit grey/RGB/RGBA")
+                         f"{interlace}: only non-interlaced 8-bit RGB/RGBA")
     C = _CHANNELS[ctype]
     raw = zlib.decompress(b"".join(idat))
     if len(raw) != H * (W * C + 1):

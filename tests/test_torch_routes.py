@@ -121,7 +121,8 @@ def test_k4_k3_route_matches_plain(cdt, skip):
     B, side, Fc = 2, 8, 16
     og, a = torch.randn(2, B, side, side, Fc, generator=g)
     mask = (torch.rand(B, 9, side * side, generator=g) < 0.7).float()
-    w1, w2 = torch.randn(9, 2 * Fc, Fc, generator=g) * 0.1, torch.randn(9, 2 * Fc, 2 * Fc, generator=g) * 0.1
+    w1 = torch.randn(9, 2 * Fc, Fc, generator=g) * 0.1
+    w2 = torch.randn(9, 2 * Fc, 2 * Fc, generator=g) * 0.1
     b1, b2 = torch.randn(Fc, generator=g) * 0.1, torch.randn(2 * Fc, generator=g) * 0.1
     ws, bs = torch.randn(2 * Fc, Fc, generator=g) * 0.1, torch.randn(Fc, generator=g) * 0.1
     args = (og, a if skip else None, mask, w1, b1, ws if skip else None,
