@@ -45,7 +45,13 @@ prints the final ok line):
      through the weight bridge, walking directions R and L;
   7. the relay gate on that checkpoint (eval/relay_report.py at the
      report's sizes, K1, K2), held to the floors of
-     tests/test_relay_artifact.py beside the JAX report's numbers.
+     tests/test_relay_artifact.py beside the JAX report's numbers;
+  8. the stage-2 trainer at the Config() widths (W=256, batch 12,
+     train_backend "pallas", a random-init VGG19): 6 G+D steps from the
+     seeded initialiser, one K2 launch and 33 K3 launches a G step; one
+     step's K2 and K3 work held to their plain versions
+     (`plain_kernels`); and 300 steps of the evidence protocol (W=64,
+     batch 8, 48 items), which must quarter the total loss.
 Each path's launch counts (and the wrappers' counts of plain-version
 calls) are zeroed just before it is driven and read just after.  The
 script ends with a `kernels` JSON line, the card's name
@@ -1441,6 +1447,260 @@ def phase_relay(report, n_pairs=48, batch=8, consistency_items=16, num_samples=N
         raise AssertionError(f"relay floors failed: {failed}")
 
 
+def _train_cfg(batch=None):
+    """The trainer at the Config() widths (W=256, 32x32 codes, nr_filters
+    80, nr_resnet 2, ngf/ndf 64, VQ channel 128, losses 1.0_l1 +
+    10.0_content with a random-init VGG19), TrainConfig's batch (12),
+    every masked conv of the PixelCNN through K3 (train_backend "pallas")."""
+    from pixelsynth_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg.dataset = "synthetic"
+    cfg.model.lmconv.train_backend = "pallas"
+    if batch is not None:
+        cfg.train.batch_size = batch
+    return cfg
+
+
+def _n_k3_convs(ps):
+    from pixelsynth_tpu_torch.models.lmconv import LMConv
+
+    return sum(isinstance(m, LMConv) for m in ps.pixelcnn.modules())
+
+
+def _train_steps(cfg, steps):
+    """`steps` G+D steps of a seeded trainer on synthetic batches, each timed
+    to its synchronise; the counts zeroed just before and read just
+    after.  -> (ps, per-step seconds, per-step losses, launches, peak
+    bytes, parameters / statistics before)."""
+    import numpy as np
+    import torch
+    from pixelsynth_tpu_torch.data.synthetic import synthetic_pair_batch
+    from pixelsynth_tpu_torch.pipeline import PixelSynth
+    from pixelsynth_tpu_torch.train.dpr import create_dpr_state, make_dpr_train_step
+
+    ps = PixelSynth(cfg, device=DEVICE, seed=0, trainable=True)
+    step = make_dpr_train_step(ps, create_dpr_state(ps))
+    rng = np.random.default_rng(0)
+    B, W = cfg.train.batch_size, cfg.model.W
+    batches = [ps.batch_to_device(synthetic_pair_batch(rng, B, W)) for _ in range(steps)]
+    before = {t: {k: v.clone() for k, v in getattr(ps, t).state_dict().items()}
+              for t in ("unet", "projector", "pixelcnn", "disc")}
+    gen = torch.Generator(DEVICE).manual_seed(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    secs, losses = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        m = step(b, gen)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append({k: float(v) for k, v in m.items()})
+    launches = read_launches()
+    return ps, secs, losses, launches, torch.cuda.max_memory_allocated(), before
+
+
+def phase_train(report, steps=6):
+    """The stage-2 trainer (train/dpr.py through pipeline.train_forward) at
+    full width: `steps` G+D steps from the seeded initialiser.  Each G step
+    launches K2 once (the splat under a gradient) and K3 once per masked
+    conv of the PixelCNN (its backward is plain); no plain version runs.
+    Losses finite; parameters, batch statistics and spectral vectors of
+    the trained trees move.  Batch 12, halved where it does not fit."""
+    import numpy as np
+    import torch
+
+    B = _train_cfg().train.batch_size
+    while True:
+        cfg = _train_cfg(B)
+        try:
+            ps, secs, losses, launches, peak, before = _train_steps(cfg, steps)
+            break
+        except torch.cuda.OutOfMemoryError:
+            if B == 1:
+                raise
+            log(f"[train] batch {B} does not fit the card's memory: halving it")
+            ps = None
+            torch.cuda.empty_cache()
+            B //= 2
+    check_no_plain("the train steps")
+    n_k3 = _n_k3_convs(ps)
+    k3 = launches["masked_conv"] + launches["masked_conv_streamed"]
+    log(f"[train] W={cfg.model.W} batch {B} codes {cfg.model.lmconv.obs[1:]} "
+        f"F={cfg.model.lmconv.nr_filters} ngf={cfg.model.ngf} ndf={cfg.model.ndf} "
+        f"train_backend={cfg.model.lmconv.train_backend} on {card_line()}")
+    log(f"[train] ms per step (steps 2-{steps}): {1e3 * float(np.mean(secs[1:])):.1f} "
+        f"(each {json.dumps([round(1e3 * t, 1) for t in secs])}); peak memory "
+        f"{peak / 2 ** 30:.2f} GiB")
+    for i, m in enumerate(losses):
+        log(f"[train] step {i} " + json.dumps({k: round(v, 5) for k, v in m.items()}))
+    log(f"[train] launches in {steps} steps: {json.dumps({k: v for k, v in launches.items() if v})}")
+    if not all(np.isfinite(v) for m in losses for v in m.values()):
+        raise AssertionError("a train step gave a loss that is not finite")
+    if launches["splat_blend"] != steps:
+        raise AssertionError(f"K2 launched {launches['splat_blend']} times in "
+                             f"{steps} G steps, not once a step")
+    if k3 != steps * n_k3:
+        raise AssertionError(f"K3 launched {k3} times in {steps} steps, not the "
+                             f"{n_k3} masked convs of the PixelCNN a step")
+    for t, sd in before.items():
+        now = getattr(ps, t).state_dict()
+        params = [k for k, _ in getattr(ps, t).named_parameters()]
+        stats = [k for k in now if k.split(".")[-1] in ("mean", "var")]
+        us = [k for k in now if k.split(".")[-1] in ("u", "u_gain", "u_bias")]
+        for kind, keys in (("parameters", params), ("batch statistics", stats),
+                           ("spectral u", us)):
+            if keys and not any(not torch.equal(now[k], sd[k]) for k in keys):
+                raise AssertionError(f"{t}: no {kind} changed in {steps} steps")
+        log(f"[train] {t}: changed {sum(not torch.equal(now[k], sd[k]) for k in params)}"
+            f"/{len(params)} parameters, {sum(not torch.equal(now[k], sd[k]) for k in stats)}"
+            f"/{len(stats)} batch statistics, "
+            f"{sum(not torch.equal(now[k], sd[k]) for k in us)}/{len(us)} spectral u")
+    record_launches(report, launches, ("splat_blend", "masked_conv"), "the train steps")
+    del ps
+    torch.cuda.empty_cache()
+    return B
+
+
+class plain_kernels:
+    """K2's launcher and K3's kernel wrapper swapped for their plain
+    versions inside the block (on CUDA tensors): the check of the
+    kernels against their plain versions inside a train step.  The
+    package has no such switch; this rebinds module attributes and puts
+    them back."""
+
+    def __enter__(self):
+        from pixelsynth_tpu_torch.ops import masked_conv_kernel as k3, splat as k2
+
+        self.saved = (k2.blend_slots_kernel, k3.locally_masked_conv2d_kernel)
+        k2.blend_slots_kernel = k2.blend_slots_plain
+        k3.locally_masked_conv2d_kernel = k3.locally_masked_conv2d_plain
+        return self
+
+    def __exit__(self, *exc):
+        from pixelsynth_tpu_torch.ops import masked_conv_kernel as k3, splat as k2
+
+        k2.blend_slots_kernel, k3.locally_masked_conv2d_kernel = self.saved
+        return False
+
+
+def phase_train_kernels(B):
+    """One G step's K2 and K3 work at noise_scale 0 from the same state,
+    with the kernels and with their plain versions (`plain_kernels`):
+    K2's forward on the step's splat inputs to <= 1e-5 and the splat's
+    input gradients (the same recomputed backward) to <= 1e-5 x max|g|;
+    the PixelCNN's AR loss on the step's codes and masks and each of its
+    gradient leaves (K3 bf16 against its plain bf16 version) to <= 2e-2 of
+    the leaf's max|g|.  The plain run launches neither kernel."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from pixelsynth_tpu_torch.data.synthetic import synthetic_pair_batch
+    from pixelsynth_tpu_torch.geometry.projection import homogeneous_to_pixels, lift_to_cloud
+    from pixelsynth_tpu_torch.ops import splat as K2
+    from pixelsynth_tpu_torch.pipeline import PixelSynth, softmax_xent
+
+    cfg = _train_cfg(B)
+    W = cfg.model.W
+    ps = PixelSynth(cfg, device=DEVICE, seed=0, trainable=True)
+    b = ps.batch_to_device(synthetic_pair_batch(np.random.default_rng(0), B, W))
+    with torch.no_grad():
+        depth = ps.regress_depth(b["input_img"])
+        cloud = lift_to_cloud(depth, b["K"], b["Kinv"], b["Pinv_in"], b["P_out"], W)
+        pts, valid = homogeneous_to_pixels(cloud, W)
+        feats = b["input_img"].reshape(B, -1, 3)
+        codes = ps.vq_encode(b["output_img"])
+        _, masks, _ = ps.masks_for_background(K2.splat(pts, feats, valid, W=W,
+                                                       cfg=cfg.model.splat)[1])
+    cot = torch.randn((B, W, W, 3), generator=torch.Generator(DEVICE).manual_seed(2),
+                      device=DEVICE)
+    oh = F.one_hot(codes, cfg.model.lmconv.num_classes).float()
+    named = list(ps.pixelcnn.named_parameters())
+
+    def run():
+        p = pts.clone().requires_grad_(True)
+        f = feats.clone().requires_grad_(True)
+        out, _ = K2.splat(p, f, valid, W=W, cfg=cfg.model.splat)
+        gp, gf = torch.autograd.grad(out, (p, f), cot)
+        loss = softmax_xent(ps.pixelcnn_logits(oh, masks, train=True), codes)
+        grads = torch.autograd.grad(loss, [q for _, q in named])
+        torch.cuda.synchronize()
+        return out.detach(), gp, gf, float(loss), grads
+
+    zero_launches()
+    got = run()
+    launches = read_launches()
+    check_no_plain("the kernel side of the train check")
+    with plain_kernels():
+        zero_launches()
+        want = run()
+        plain_launches = read_launches()
+    if launches["splat_blend"] != 1 or launches["masked_conv"] != _n_k3_convs(ps):
+        raise AssertionError(f"kernel side launches {json.dumps(launches)}")
+    if any(plain_launches.values()):
+        raise AssertionError(f"the plain side launched kernels: {json.dumps(plain_launches)}")
+    # K2 under a gradient at this step's shapes: the kernel's forward and the
+    # recomputed backward (one group of tile_group tiles at a time)
+    idx, svld = K2._bin_dispatch(pts, valid, W, cfg.model.splat)
+    fwd_ms = time_ms(lambda: K2.blend_slots_kernel(pts, feats, idx, svld, W,
+                                                   cfg.model.splat), reps=5, rounds=3)
+    bwd_ms = time_ms(lambda: K2.blend_slots_vjp(cot, pts, feats, idx, svld, W,
+                                                cfg.model.splat), warmup=1, reps=2, rounds=3)
+    log(f"[train-check] K2 under a gradient, batch {B} x {pts.shape[1]} points, "
+        f"W={W}: forward {fwd_ms:.4f} ms (the kernel), recomputed backward "
+        f"{bwd_ms:.2f} ms ({-(-idx.shape[0] * idx.shape[1] // cfg.model.splat.tile_group)}"
+        f" groups of {cfg.model.splat.tile_group} tiles) on {card_line()}")
+    fwd = float((got[0] - want[0]).abs().max())
+    gp_err = float((got[1] - want[1]).abs().max() / want[1].abs().max())
+    gf_err = float((got[2] - want[2]).abs().max() / want[2].abs().max())
+    loss_err = abs(got[3] - want[3]) / abs(want[3])
+    leaf_err = max(float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+                   for g, w in zip(got[4], want[4]))
+    log(f"[train-check] batch {B} W={W}: K2 forward max |kernel - plain| {fwd:.3e}; "
+        f"splat input gradients {gp_err:.3e} (points), {gf_err:.3e} (feats) of max|g|; "
+        f"K3 AR loss {got[3]:.6f} vs plain {want[3]:.6f} ({loss_err:.3e} relative), "
+        f"worst gradient leaf {leaf_err:.3e} of its max|g|")
+    if not (fwd <= 1e-5 and gp_err <= 1e-5 and gf_err <= 1e-5 and loss_err <= 2e-2
+            and leaf_err <= 2e-2):
+        raise AssertionError("the train step's kernels disagree with their plain versions")
+    del ps
+    torch.cuda.empty_cache()
+
+
+def phase_train_overfit(steps=300):
+    """The committed evidence protocol (tools/training_evidence.py: W=64,
+    batch 8, 48 fixed synthetic items, seed 0; JAX's evidence/dpr.jsonl
+    goes 7.37 -> 0.975 in total loss by step 300) for `steps` steps: the
+    total loss at the last step is at most a quarter of step 0's, and L1
+    falls.  The curve goes under build/train_evidence/."""
+    from pixelsynth_tpu_torch.tools.training_evidence import evidence_dpr
+
+    out_dir = os.path.join(REPO, "build", "train_evidence")
+    t0 = time.perf_counter()
+    zero_launches()
+    res = evidence_dpr(out_dir, steps=steps, log_every=100, device=DEVICE,
+                       log_fn=lambda s: log(f"[overfit] {s}"))
+    launches = read_launches()
+    check_no_plain("the overfit run")
+    with open(os.path.join(out_dir, "dpr.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    first, last = rows[0], rows[-1]
+    log(f"[overfit] {steps} steps in {time.perf_counter() - t0:.1f} s on {card_line()}: "
+        f"total loss {first['total_loss']:.4f} (step {first['step']}) -> "
+        f"{last['total_loss']:.4f} (step {last['step']}), L1 {first['l1']:.4f} -> "
+        f"{last['l1']:.4f}, psnr_det {first['psnr_det']:.3f} -> {last['psnr_det']:.3f}, "
+        f"psnr_std_det {first['psnr_std_det']:.3f} -> {last['psnr_std_det']:.3f}; "
+        f"K2 launches {launches['splat_blend']}")
+    if last["step"] != steps - 1 or not last["total_loss"] <= 0.25 * first["total_loss"]:
+        raise AssertionError("the overfit did not quarter the total loss")
+    if not last["l1"] < first["l1"]:
+        raise AssertionError("the overfit did not lower L1")
+    if launches["splat_blend"] == 0:
+        raise AssertionError("the overfit run did not launch K2")
+    return res
+
+
 def main(argv):
     try:
         import torch
@@ -1472,6 +1732,9 @@ def main(argv):
         phase_view2(report)
         phase_walk()
         phase_relay(report)
+        B = phase_train(report)
+        phase_train_kernels(B)
+        phase_train_overfit()
     log(f"[total] {time.perf_counter() - t0:.1f} s")
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"]

@@ -24,13 +24,16 @@ each value selects on the card:
     per-layer module with every masked conv through kernel K3
     (ops/masked_conv_kernel.py); "xla" = the module with the plain masked
     conv.  The last two sample one cell per forward;
+  * `lmconv.train_backend` (the trainer's PixelCNN): "xla" = the plain
+    masked conv; "pallas" = every masked conv through K3's differentiable
+    entry, at `compute_dtype`;
   * `lmconv.compute_dtype`, `feature_norm`, `conv_mask_weight`,
     `dropout_prob` and the model's sizes.
 
 Any other value of these fields, and `lmconv.weight_norm=True`, raises
-NotImplementedError naming the field.  `use_pallas`, `train_backend` and
-`masks_backend` belong to paths the port does not have yet (the blend
-always runs K2, orders and masks are built on the host) and are not read.
+NotImplementedError naming the field.  `use_pallas` and `masks_backend`
+belong to paths the port does not have (the blend always runs K2, orders
+and masks are built on the host) and are not read.
 """
 
 from __future__ import annotations

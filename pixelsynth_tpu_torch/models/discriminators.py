@@ -1,6 +1,9 @@
-"""pix2pixHD multiscale PatchGAN discriminator, eval only (port of
+"""pix2pixHD multiscale PatchGAN discriminator (port of
 pixelsynth_tpu/models/discriminators.py).  NHWC in; per scale, the list of
-each layer's NHWC features."""
+each layer's NHWC features.  `trainable` builds raw spectral-normed
+weights with their u/v buffers; the discriminator has no batch
+statistics, so train mode only advances the spectral vectors (which the
+trainer does once a step, train/dpr.py)."""
 
 from __future__ import annotations
 
@@ -21,18 +24,18 @@ def _instance_norm(h: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 class NLayerDiscriminator(FlaxNamed):
-    def __init__(self, ndf=64, n_layers=4, in_channels=3):
+    def __init__(self, ndf=64, n_layers=4, in_channels=3, trainable=False):
         super().__init__()
         self.n_layers = n_layers
         nf = ndf
-        self.convs = [self.add("SNConv", Conv(in_channels, nf, 4, 2, 2))]
-        self.strides = []
+        kw = dict(trainable=trainable)
+        self.convs = [self.add("SNConv", Conv(in_channels, nf, 4, 2, 2, **kw))]
         for n in range(1, n_layers):
             nf_prev, nf = nf, min(nf * 2, 512)
             stride = 1 if n == n_layers - 1 else 2
             self.convs.append(self.add("SNConv", Conv(
-                nf_prev, nf, 4, stride, 2, bias=False, spectral=True)))
-        self.convs.append(self.add("SNConv", Conv(nf, 1, 4, 1, 2)))
+                nf_prev, nf, 4, stride, 2, bias=False, spectral=True, **kw)))
+        self.convs.append(self.add("SNConv", Conv(nf, 1, 4, 1, 2, **kw)))
 
     def forward(self, x) -> List[torch.Tensor]:
         h = F.leaky_relu(self.convs[0](x), 0.2)
@@ -45,10 +48,10 @@ class NLayerDiscriminator(FlaxNamed):
 
 
 class MultiscaleDiscriminator(FlaxNamed):
-    def __init__(self, ndf=64, num_D=2, n_layers=4):
+    def __init__(self, ndf=64, num_D=2, n_layers=4, trainable=False):
         super().__init__()
         self.discs = [self.add("NLayerDiscriminator",
-                               NLayerDiscriminator(ndf, n_layers))
+                               NLayerDiscriminator(ndf, n_layers, trainable=trainable))
                       for _ in range(num_D)]
 
     def forward(self, x) -> List[List[torch.Tensor]]:

@@ -1,6 +1,9 @@
 """BigGAN-style refinement decoder (port of
 pixelsynth_tpu/models/encoderdecoder.py, decoder only: the feature encoder
-is unused with RGB point features)."""
+is unused with RGB point features).  `trainable` builds the training
+layers of models/layers.py; in train mode a forward updates the NoiseBNs'
+batch statistics and spectral vectors in place (the JAX decoder returns
+them as its `batch_stats` / `spectral_stats` updates, :88-111)."""
 
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ class ResNetDecoder(FlaxNamed):
 
     def __init__(self, model_type="resnet_256W8UpDown3", ngf=64, spectral=True,
                  predict_residual=True, normalize_before_residual=False,
-                 in_channels=3, with_mask=True):
+                 in_channels=3, with_mask=True, trainable=False):
         super().__init__()
         arch = get_resnet_arch(model_type, ngf)
         chans = list(arch["layers_dec"])
@@ -43,7 +46,7 @@ class ResNetDecoder(FlaxNamed):
         self.predict_residual = predict_residual
         self.normalize_before_residual = normalize_before_residual
         self.blocks = [self.add("ResNetBlock", ResNetBlock(
-            chans[i - 1], chans[i], arch["upsample"][i - 1], spectral))
+            chans[i - 1], chans[i], arch["upsample"][i - 1], spectral, trainable))
             for i in range(1, len(chans))]
 
     def forward(self, x, background_mask: Optional[torch.Tensor] = None, *,

@@ -188,14 +188,17 @@ class GatedResnet(FlaxNamed):
             if name != "norm":
                 child.reset(gen)
 
-    def forward(self, og_x, a=None, *, mask):
+    def forward(self, og_x, a=None, *, mask, gen: Optional[torch.Generator] = None):
         x = self.LMConv_0(concat_elu(og_x), mask)
         x = self.norm(x, mask)
         if a is not None:
             x = x + self.Nin_0(concat_elu(a))
         x = concat_elu(x)
-        if self.dropout_prob > 0:
-            x = F.dropout(x, self.dropout_prob, self.training)
+        if self.dropout_prob > 0 and self.training:
+            # Flax nn.Dropout: keep with 1 - p, scaled by 1 / (1 - p); the
+            # draw comes from `gen`
+            keep = torch.rand(x.shape, generator=gen, device=x.device) >= self.dropout_prob
+            x = torch.where(keep, x / (1.0 - self.dropout_prob), 0.0)
         x = self.LMConv_1(x, mask)
         a_out, b_out = torch.chunk(x, 2, dim=-1)
         return og_x + self.norm(a_out, mask) * torch.sigmoid(b_out)
@@ -255,17 +258,18 @@ class LMPixelCNN(FlaxNamed):
                 child.reset(gen)
 
     def forward(self, x, mask_init, mask_undilated, mask_dilated, *,
-                codes=None, filled=None):
+                codes=None, filled=None, gen: Optional[torch.Generator] = None):
         """x (B, H, W, input_channels) one-hot codes, or None with `codes`
         (B, H, W) int and `filled` (B, H, W): the first layer is then the
         per-tap embedding gather.  masks (B, k^2, H*W).  Returns logits
-        (B, H, W, num_classes)."""
+        (B, H, W, num_classes).  In train mode a `dropout_prob` > 0 draws
+        its masks from `gen`."""
         nr = self.nr_resnet
         g = d = 0
 
         def gated(u, a=None):
             nonlocal g
-            out = getattr(self, f"GatedResnet_{g}")(u, a, mask=mask_undilated)
+            out = getattr(self, f"GatedResnet_{g}")(u, a, mask=mask_undilated, gen=gen)
             g += 1
             return out
 

@@ -349,9 +349,9 @@ class _MaskedConvFn(torch.autograd.Function):
         ctx.save_for_backward(x, weight)
         ctx.mask, ctx.dilation = mask, dilation
         with torch.no_grad():
-            return locally_masked_conv2d_kernel(
-                x, mask, weight if packed is None else packed, bias,
-                dilation=dilation, compute_dtype=compute_dtype)
+            return k3_layer_conv(x, mask, weight if packed is None else packed,
+                                 bias, dilation=dilation,
+                                 compute_dtype=compute_dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -364,8 +364,10 @@ def locally_masked_conv2d_kernel_vjp(x, mask: MaskArg, weight: TapsArg,
                                      bias: Optional[torch.Tensor],
                                      dilation: int = 1,
                                      compute_dtype: str = "bfloat16"):
-    """Differentiable K3: the kernel forward with the plain backward (which
-    reads the plain weights of a PackedTaps)."""
+    """Differentiable K3: the forward of `k3_layer_conv` (so a shape the
+    bf16 kernel does not take, such as the PixelCNN's one-hot first layer
+    with Cin = 513, runs the f32 kernel on bf16-rounded operands) with the
+    plain backward (which reads the plain weights of a PackedTaps)."""
     raw = raw_taps(weight)
     if bias is None:
         bias = torch.zeros(raw.shape[-1], dtype=torch.float32, device=x.device)

@@ -22,8 +22,15 @@ kernel K2 for the blend and kernel K5 for the binning sort.
      version, `gather_slots` then `blend_tiles_plain` = `_blend_tiles`).
   3. The background mask is the dilated (max-filtered) uncovered map.
 
-This slice serves inference only: the K2 wrapper raises for inputs that
-require grad.
+Under a gradient (`blend_slots` with points or feats that require grad)
+the blend is `_SplatBlendFn`, after the JAX package's `splat_pallas`
+(ops/splat_pallas.py:193-251): the forward is the same K2 launch, the
+backward the VJP of the plain blend with respect to points and feats
+(`blend_slots_vjp`), recomputed one group of `tile_group` tiles at a time
+so that no more than one group's intermediates live at once (at W=256,
+batch 12 and M=1024 autograd through `blend_tiles_plain` would keep
+~30 GB).  The binning takes no gradient (its outputs are integers), and
+the background mask has no cotangent.
 """
 
 from __future__ import annotations
@@ -340,7 +347,7 @@ def gather_slots(points, feats, slot_idx, slot_valid):
     sfts = torch.gather(feats, 1, flat[..., None].expand(-1, -1, feats.shape[-1]))
     sfts = sfts * slot_valid.reshape(B, nT * M, 1)
     return (spts.reshape(B * nT, M, 3).contiguous(),
-            sfts.reshape(B * nT, M, -1).contiguous().float(),
+            sfts.reshape(B * nT, M, -1).contiguous(),
             slot_valid.reshape(B * nT, M).contiguous())
 
 
@@ -364,11 +371,14 @@ def untile(x: torch.Tensor, B: int, W: int, TS: int) -> torch.Tensor:
 
 def blend_slots_plain(points, feats, slot_idx, slot_valid, W: int, cfg: SplatConfig):
     """K2's plain version: `gather_slots`, then `blend_tiles_plain`, laid
-    out as the image.  -> (out (B, W, W, C) f32, covered (B, W, W) bool)."""
+    out as the image.  -> (out (B, W, W, C), covered (B, W, W) bool); out
+    is f32 for f32 inputs (float64 inputs are blended in float64)."""
     B = points.shape[0]
     TS = cfg.tile_size
-    spts, sfts, svld = gather_slots(points.float(), feats.float(), slot_idx, slot_valid)
-    org = tile_origins(W, TS, points.device).repeat(B, 1)
+    dt = torch.promote_types(torch.promote_types(points.dtype, feats.dtype),
+                             torch.float32)
+    spts, sfts, svld = gather_slots(points.to(dt), feats.to(dt), slot_idx, slot_valid)
+    org = tile_origins(W, TS, points.device).repeat(B, 1).to(dt)
     out, cov = blend_tiles_plain(spts, sfts, svld, org, W, cfg)
     return untile(out, B, W, TS), untile(cov, B, W, TS)
 
@@ -377,14 +387,93 @@ def blend_slots(points, feats, slot_idx, slot_valid, W: int, cfg: SplatConfig):
     """K2.  points (B, N, 3) [col, row, depth], feats (B, N, C), the
     binner's slot_idx (B, nT, M) and slot_valid (B, nT, M) -> (out (B, W,
     W, C) f32, covered (B, W, W) bool).  On the card one launch of the
-    CUDA kernel, which gathers the slots' points itself (points and feats
-    f32, C <= 8; slot_idx int64; tile_size a multiple of 8 up to 32); on
-    the CPU `blend_slots_plain`."""
+    CUDA kernel (`blend_slots_kernel`); on the CPU `blend_slots_plain`.
+    Where points or feats require grad, the same forward inside
+    `_SplatBlendFn`, whose backward is `blend_slots_vjp`."""
+    if torch.is_grad_enabled() and (points.requires_grad or feats.requires_grad):
+        return _SplatBlendFn.apply(points, feats, slot_idx, slot_valid, W, cfg)
+    return _blend_forward(points, feats, slot_idx, slot_valid, W, cfg)
+
+
+def _blend_forward(points, feats, slot_idx, slot_valid, W: int, cfg: SplatConfig):
     if not points.is_cuda:
         PLAIN_CALLS["splat_blend"] += 1
         return blend_slots_plain(points, feats, slot_idx, slot_valid, W, cfg)
-    if points.requires_grad or feats.requires_grad:
-        raise ValueError("the K2 blend serves inference only: no gradient")
+    return blend_slots_kernel(points, feats, slot_idx, slot_valid, W, cfg)
+
+
+def blend_slots_vjp(g_out, points, feats, slot_idx, slot_valid, W: int,
+                    cfg: SplatConfig):
+    """(d points (B, N, 3), d feats (B, N, C)) of `blend_slots_plain` for
+    the cotangent g_out (B, W, W, C): the plain blend recomputed under
+    autograd one group of cfg.tile_group tiles at a time, each group's
+    slot gradients scattered back onto the points they were gathered
+    from, each group over its slots up to its last valid one.  The depth
+    column gets no gradient (the blend reads only col and row), nor do
+    empty slots."""
+    B, N, _ = points.shape
+    C = feats.shape[-1]
+    TS = cfg.tile_size
+    nside = W // TS
+    T, M = B * nside * nside, slot_idx.shape[-1]
+    dev = points.device
+    g_tiles = (g_out.reshape(B, nside, TS, nside, TS, C).transpose(2, 3)
+               .reshape(T, TS, TS, C))
+    flat_idx = (slot_idx + torch.arange(B, device=dev)[:, None, None] * N).reshape(T, M)
+    svld = slot_valid.reshape(T, M)
+    dt = torch.promote_types(torch.promote_types(points.dtype, feats.dtype),
+                             torch.float32)
+    pts = points.detach().to(dt).reshape(B * N, 3)
+    fts = feats.detach().to(dt).reshape(B * N, C)
+    org = tile_origins(W, TS, dev).repeat(B, 1).to(dt)
+    dpts, dfts = torch.zeros_like(pts), torch.zeros_like(fts)
+    G = max(1, cfg.tile_group)
+    # each group is blended over its slots up to its last valid one (the
+    # slots after it add nothing): one host read for all groups
+    ends = (svld * torch.arange(1, M + 1, device=dev)).amax(1)
+    ends = F.pad(ends, (0, -T % G)).reshape(-1, G).amax(1).clamp(min=1).tolist()
+    for g0, m in zip(range(0, T, G), ends):
+        idx = flat_idx[g0:g0 + G, :m]
+        with torch.enable_grad():
+            p = pts[idx].requires_grad_(True)
+            f = fts[idx].requires_grad_(True)
+            out, _ = blend_tiles_plain(p, f, svld[g0:g0 + G, :m], org[g0:g0 + G], W, cfg)
+            gp, gf = torch.autograd.grad(out, (p, f), g_tiles[g0:g0 + G])
+        dpts.index_add_(0, idx.reshape(-1), gp.reshape(-1, 3))
+        dfts.index_add_(0, idx.reshape(-1), gf.reshape(-1, C))
+    return (dpts.reshape(B, N, 3).to(points.dtype),
+            dfts.reshape(B, N, C).to(feats.dtype))
+
+
+class _SplatBlendFn(torch.autograd.Function):
+    """K2 under a gradient: the forward of `blend_slots` (the kernel on the
+    card), the backward `blend_slots_vjp` (plain PyTorch, as the JAX
+    package's backward is plain XLA)."""
+
+    @staticmethod
+    def forward(ctx, points, feats, slot_idx, slot_valid, W, cfg):
+        ctx.save_for_backward(points, feats, slot_idx, slot_valid)
+        ctx.W, ctx.cfg = W, cfg
+        with torch.no_grad():
+            out, cov = _blend_forward(points, feats, slot_idx, slot_valid, W, cfg)
+        ctx.mark_non_differentiable(cov)
+        return out, cov
+
+    @staticmethod
+    def backward(ctx, g_out, _g_cov):
+        points, feats, slot_idx, slot_valid = ctx.saved_tensors
+        dp, df = blend_slots_vjp(g_out, points, feats, slot_idx, slot_valid,
+                                 ctx.W, ctx.cfg)
+        return dp, df, None, None, None, None
+
+
+def blend_slots_kernel(points, feats, slot_idx, slot_valid, W: int, cfg: SplatConfig):
+    """One launch of the CUDA kernel (csrc/splat_blend.cu), which gathers
+    the slots' points itself: points and feats f32, C <= 8; slot_idx
+    int64; tile_size a multiple of 8 up to 32.  Takes no gradient: under
+    one, `blend_slots` runs it inside `_SplatBlendFn`."""
+    if torch.is_grad_enabled() and (points.requires_grad or feats.requires_grad):
+        raise ValueError("blend_slots_kernel has no gradient: use blend_slots")
     B, N, _ = points.shape
     C = feats.shape[-1]
     TS = cfg.tile_size
@@ -429,7 +518,7 @@ def splat(points, feats, valid=None, *, W: int, cfg: SplatConfig = None):
     B, N, _ = points.shape
     if valid is None:
         valid = torch.ones((B, N), dtype=torch.bool, device=points.device)
-    slot_idx, slot_valid = _bin_dispatch(points, valid, W, cfg)
+    slot_idx, slot_valid = _bin_dispatch(points.detach(), valid, W, cfg)
     img, covered = blend_slots(points, feats, slot_idx, slot_valid, W, cfg)
     return img, dilate_mask(~covered, cfg.background_smoothing_kernel_size)
 

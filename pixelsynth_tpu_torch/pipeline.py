@@ -1,5 +1,6 @@
-"""The PixelSynth inference pipeline on PyTorch (port of the inference
-stages of pixelsynth_tpu/pipeline.py, :285-481).
+"""The PixelSynth pipeline on PyTorch (port of pixelsynth_tpu/pipeline.py):
+the inference stages (:285-481) and the stage-2 training forward
+(`train_forward`, :485-588).
 
   depth U-Net -> reprojection -> soft z-buffer splat (K2; binning by
   `splat.binning` / `splat.sort_backend`, K5) -> background mask ->
@@ -11,6 +12,14 @@ stages of pixelsynth_tpu/pipeline.py, :285-481).
 Cumulative scenes carry a fixed-capacity, validity-masked point cloud
 (`CloudState`); appends compact it with a stable sort.  Entry points run
 on `cuda` unless the caller passes device="cpu".
+
+`PixelSynth(cfg, trainable=True)` builds the stage-2 trainer's networks
+instead of the view step's: the depth U-Net, the refinement decoder, the
+PixelCNN (on `lmconv.train_backend`) and the discriminator with trainable
+raw weights and their batch / spectral statistics as buffers, beside the
+frozen VQ-VAE and a VGG19 for the perceptual loss.  `train_forward` runs
+the splat under a gradient (K2's forward, a plain backward) and, with
+`train_backend="pallas"`, every masked conv of the PixelCNN through K3.
 """
 
 from __future__ import annotations
@@ -29,7 +38,9 @@ from pixelsynth_tpu_torch.geometry.projection import (
 from pixelsynth_tpu_torch.models.classifier import ResNet18
 from pixelsynth_tpu_torch.models.discriminators import MultiscaleDiscriminator
 from pixelsynth_tpu_torch.models.encoderdecoder import ResNetDecoder
+from pixelsynth_tpu_torch.models.layers import collections
 from pixelsynth_tpu_torch.models.lmconv import LMPixelCNN, flax_named_params
+from pixelsynth_tpu_torch.models.losses import VGG19Features, synthesis_loss
 from pixelsynth_tpu_torch.models.unet import UNet
 from pixelsynth_tpu_torch.models.vqvae import VQVAETop
 from pixelsynth_tpu_torch.ops.distance_transform import signed_distance_field
@@ -80,6 +91,13 @@ class CloudState:
             torch.gather(valid, 1, order))
 
 
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy over all positions (pipeline.py:47-51, torch's
+    CrossEntropyLoss): logits (..., classes), labels (...) int."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, labels[..., None].long())[..., 0].mean()
+
+
 def downsample_mask(mask: torch.Tensor, factor: int = 8) -> torch.Tensor:
     """(B, H, W) -> avg-pooled by `factor` (z_buffermodel.py:87,646-647)."""
     return F.avg_pool2d(mask.float()[:, None], factor, factor)[:, 0]
@@ -91,8 +109,12 @@ def binarize_trunc(mask_ds: torch.Tensor) -> torch.Tensor:
     return (mask_ds >= 1.0 - 1e-6).float()
 
 
-def build_modules(cfg: Config, classifier_vars=None) -> Dict[str, torch.nn.Module]:
-    """The view step's networks, on the CPU, unloaded."""
+def build_modules(cfg: Config, classifier_vars=None, *,
+                  trainable: bool = False) -> Dict[str, torch.nn.Module]:
+    """The view step's networks, on the CPU, unloaded; with `trainable` the
+    stage-2 trainer's instead (models/layers.py: raw weights with their
+    spectral vectors; the frozen VQ-VAE and a VGG19 in place of the
+    classifier)."""
     mc = cfg.model
     if not mc.use_rgb_features or "modifier" in mc.depth_predictor_type:
         raise NotImplementedError("the port serves RGB point features only")
@@ -104,42 +126,58 @@ def build_modules(cfg: Config, classifier_vars=None) -> Dict[str, torch.nn.Modul
     n_cls = 365
     if classifier_vars is not None:
         n_cls = int(np.asarray(classifier_vars["params"]["Dense_0"]["kernel"]).shape[-1])
-    return {
+    mods = {
         "unet": UNet(mc.unet_num_filters, 1, spectral, levels,
-                     "batchstanding" if "batchstanding" in mc.norm_G else "batch"),
+                     "batchstanding" if "batchstanding" in mc.norm_G else "batch",
+                     trainable=trainable),
         "projector": ResNetDecoder(mc.refine_model_type, mc.ngf, spectral,
                                    mc.predict_residual,
-                                   mc.normalize_before_residual),
+                                   mc.normalize_before_residual,
+                                   trainable=trainable),
         "vqvae": VQVAETop(v.in_channel, v.channel, v.n_res_block,
                           v.n_res_channel, v.embed_dim, v.n_embed),
-        "disc": MultiscaleDiscriminator(mc.ndf),
-        "classifier": ResNet18(n_cls),
+        "disc": MultiscaleDiscriminator(mc.ndf, trainable=trainable),
     }
+    mods.update({"vgg": VGG19Features()} if trainable else
+                {"classifier": ResNet18(n_cls)})
+    return mods
 
 
 SAMPLE_BACKENDS = ("fused", "pallas", "xla")
 
 
-def build_pixelcnn(cfg: Config) -> LMPixelCNN:
-    """The sampling-side PixelCNN module (`pixelcnn_fast`, pipeline.py
-    :226-231), on the CPU, unloaded: the masked-conv backend is
+def build_pixelcnn(cfg: Config, *, trainable: bool = False) -> LMPixelCNN:
+    """The PixelCNN module, on the CPU, unloaded.  The sampling side
+    (`pixelcnn_fast`, pipeline.py:226-231): the masked-conv backend is
     `lmconv.sample_backend`, with "fused" keeping the kernel backend for
-    the module (the fused forward itself is `make_sampling_logits_fn`'s)."""
+    the module (the fused forward itself is `make_sampling_logits_fn`'s).
+    With `trainable` the training side (`pixelcnn`, :218-225): the backend
+    is `lmconv.train_backend` ("xla" the plain masked conv, "pallas" K3
+    under its differentiable entry), with `compute_dtype` only for
+    "pallas", and the parameters require grad."""
     l = cfg.model.lmconv
-    if l.sample_backend not in SAMPLE_BACKENDS:
+    backend = l.train_backend if trainable else l.sample_backend
+    backends = ("pallas", "xla") if trainable else SAMPLE_BACKENDS
+    if backend not in backends:
+        field = "train_backend" if trainable else "sample_backend"
         raise NotImplementedError(
-            f"lmconv.sample_backend={l.sample_backend!r}: the port implements "
-            f"{SAMPLE_BACKENDS}")
+            f"lmconv.{field}={backend!r}: the port implements {backends}")
     if l.weight_norm:
         raise NotImplementedError("lmconv.weight_norm=True is not ported")
-    return LMPixelCNN(
+    if trainable:
+        dtype = l.compute_dtype if backend == "pallas" else None
+    else:
+        dtype = l.compute_dtype
+        backend = "pallas" if backend == "fused" else backend
+    model = LMPixelCNN(
         nr_resnet=l.nr_resnet, nr_filters=l.nr_filters,
         input_channels=l.input_channels, kernel_size=l.kernel_size,
         max_dilation=l.max_dilation, feature_norm=l.feature_norm,
         dropout_prob=l.dropout_prob, conv_bias=l.conv_bias,
         conv_mask_weight=l.conv_mask_weight, num_classes=l.num_classes,
-        compute_dtype=l.compute_dtype,
-        backend="pallas" if l.sample_backend == "fused" else l.sample_backend)
+        compute_dtype=dtype, backend=backend)
+    model.requires_grad_(trainable)
+    return model
 
 
 def random_pixelcnn_params(cfg: Config, gen: torch.Generator) -> Dict[str, torch.Tensor]:
@@ -175,56 +213,67 @@ def random_pixelcnn_params(cfg: Config, gen: torch.Generator) -> Dict[str, torch
 
 
 class PixelSynth:
-    """The networks of the view step plus its stages.
+    """The networks of the view step plus its stages, or (`trainable`) the
+    stage-2 trainer's networks plus the training forward.
 
     state_dicts: {tree: state dict} from weights.from_jax_params (trained
-    weights); without it every network is initialized from `seed`.
-    with_classifier: build the re-ranking classifier (always when its
-    state dict is given)."""
+    weights, made with the same `trainable`); every other tree is
+    initialized from `seed`.  with_classifier: build the re-ranking
+    classifier (always when its state dict is given; never when
+    trainable)."""
 
     def __init__(self, cfg: Config, *, device="cuda", seed: int = 0,
                  state_dicts: Optional[Dict[str, Dict]] = None,
-                 with_classifier: Optional[bool] = None):
+                 with_classifier: Optional[bool] = None,
+                 trainable: bool = False):
         self.cfg = cfg
         self.device = torch.device(device)
         self.W = cfg.model.W
+        self.trainable = trainable
         state_dicts = state_dicts or {}
-        mods = build_modules(cfg)
-        if "classifier" in state_dicts:
-            n_cls = state_dicts["classifier"]["Dense_0.weight"].shape[0]
-            mods["classifier"] = ResNet18(n_cls)
-        if with_classifier is None:
-            with_classifier = "classifier" in state_dicts
-        if not with_classifier:
-            mods.pop("classifier")
-        gen = torch.Generator().manual_seed(seed)
-        with torch.no_grad():
-            for name, m in mods.items():
-                if name in state_dicts:
-                    m.load_state_dict(state_dicts[name])
-                else:
-                    m.reset(gen)
-        for name, m in mods.items():
-            setattr(self, name, m.to(self.device).eval())
-        self.classifier = mods.get("classifier")
-        if self.classifier is not None:
-            self.classifier = self.classifier.to(self.device).eval()
+        mods = build_modules(cfg, trainable=trainable)
+        if not trainable:
+            if "classifier" in state_dicts:
+                n_cls = state_dicts["classifier"]["Dense_0.weight"].shape[0]
+                mods["classifier"] = ResNet18(n_cls)
+            if with_classifier is None:
+                with_classifier = "classifier" in state_dicts
+            if not with_classifier:
+                mods.pop("classifier")
         # one PixelCNN parameter set for the three engines: the module
         # (sample_backend "pallas" / "xla"), K1's packing ("fused") and the
         # per-layer kernel engine (models/lmconv_fast.py)
-        pixelcnn = build_pixelcnn(cfg)
-        with torch.no_grad():
-            if "pixelcnn" in state_dicts:
-                pixelcnn.load_state_dict(state_dicts["pixelcnn"])
+        mods["pixelcnn"] = build_pixelcnn(cfg, trainable=trainable)
+        self.trees = list(mods)
+        self.classifier = None
+        for name, m in mods.items():
+            setattr(self, name, m)
+        self.init_variables(torch.Generator().manual_seed(seed), state_dicts)
+        for name in self.trees:
+            setattr(self, name, getattr(self, name).to(self.device).eval())
+        if not trainable:
+            l = cfg.model.lmconv
+            self.pixelcnn_params = flax_named_params(self.pixelcnn)
+            self.packed = pack_lmconv_params(self.pixelcnn_params,
+                                             nr_resnet=l.nr_resnet,
+                                             compute_dtype=l.compute_dtype,
+                                             device=self.device)
+
+    @torch.no_grad()
+    def init_variables(self, gen: torch.Generator,
+                       state_dicts: Optional[Dict[str, Dict]] = None) -> None:
+        """Every tree (unet, projector, vqvae, disc, then the classifier or
+        the VGG19, then the PixelCNN) from its state dict where one is
+        given, else initialized from `gen`, in that order."""
+        state_dicts = state_dicts or {}
+        for name in self.trees:
+            m = getattr(self, name)
+            if name in state_dicts:
+                m.load_state_dict(state_dicts[name])
+            elif name == "pixelcnn":
+                m.load_flax(unflatten_tree(random_pixelcnn_params(self.cfg, gen)))
             else:
-                pixelcnn.load_flax(unflatten_tree(random_pixelcnn_params(cfg, gen)))
-        self.pixelcnn = pixelcnn.to(self.device).eval()
-        l = cfg.model.lmconv
-        self.pixelcnn_params = flax_named_params(self.pixelcnn)
-        self.packed = pack_lmconv_params(self.pixelcnn_params,
-                                         nr_resnet=l.nr_resnet,
-                                         compute_dtype=l.compute_dtype,
-                                         device=self.device)
+                m.reset(gen)
 
     @classmethod
     def from_stitched(cls, path: str, *, device="cuda") -> "PixelSynth":
@@ -238,17 +287,24 @@ class PixelSynth:
 
     # -- stages ------------------------------------------------------------
 
-    def regress_depth(self, img: torch.Tensor) -> torch.Tensor:
-        """sigmoid(UNet) scaled to [min_z, max_z] (z_buffermodel.py:303-314)."""
+    def regress_depth(self, img: torch.Tensor, *, train: bool = False):
+        """sigmoid(UNet) scaled to [min_z, max_z] (z_buffermodel.py:303-314).
+        With train=True the U-Net runs in train mode (batch statistics, one
+        power iteration) and the result is (depth, its collection updates:
+        the U-Net's `batch_stats` / `spectral_stats`, updated in place)."""
         mc = self.cfg.model
+        self.unet.train(train)
         raw = self.unet(img)[..., 0]
         if mc.use_inverse_depth:
-            return 1.0 / (torch.sigmoid(raw) * 10.0 + 0.01)
-        return torch.sigmoid(raw) * (mc.max_z - mc.min_z) + mc.min_z
+            depth = 1.0 / (torch.sigmoid(raw) * 10.0 + 0.01)
+        else:
+            depth = torch.sigmoid(raw) * (mc.max_z - mc.min_z) + mc.min_z
+        return (depth, collections(self.unet)) if train else depth
 
     def features(self, img: torch.Tensor) -> torch.Tensor:
         """The point features: the image itself (the port serves RGB point
-        features only; `build_modules` refuses an encoder)."""
+        features only; `build_modules` refuses an encoder, so no collection
+        is updated in train mode either)."""
         return img
 
     def splat_view(self, fs, depth, cams):
@@ -357,9 +413,102 @@ class PixelSynth:
         return fn
 
     def decode_image(self, combined, bg_mask, *, noise_scale: float = 1.0,
-                     gen: Optional[torch.Generator] = None):
+                     gen: Optional[torch.Generator] = None, train: bool = False):
+        """The refinement decoder; its noise draws come from `gen`.  With
+        train=True, (image, the decoder's collection updates)."""
         mask_arg = None if self.cfg.model.no_outpainting else bg_mask
-        return self.projector(combined, mask_arg, noise_scale=noise_scale, gen=gen)
+        self.projector.train(train)
+        out = self.projector(combined, mask_arg, noise_scale=noise_scale, gen=gen)
+        return (out, collections(self.projector)) if train else out
+
+    def pixelcnn_logits(self, onehot, masks, *, train: bool = False,
+                        gen: Optional[torch.Generator] = None):
+        """The training-side PixelCNN on one-hot codes (pipeline.py:408):
+        onehot (B, h, w, num_classes), masks (B, 3, k^2, hw) stacked [init,
+        undilated, dilated].  On the card with train_backend "pallas" the
+        masks are laid out for K3 once for all its launches.  -> logits
+        (B, h, w, num_classes)."""
+        self.pixelcnn.train(train)
+        triple = [masks[:, 0], masks[:, 1], masks[:, 2]]
+        if masks.is_cuda and self.cfg.model.lmconv.train_backend == "pallas":
+            triple = [prepare_mask(m) for m in triple]
+        return self.pixelcnn(onehot, *triple, gen=gen)
+
+    def batch_to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """numpy arrays -> float32 tensors on this device; tensors are moved
+        and keep their dtype."""
+        return {k: (v.to(self.device) if torch.is_tensor(v) else
+                    torch.as_tensor(np.array(v, np.float32), device=self.device))
+                for k, v in batch.items()}
+
+    def train_forward(self, batch: Dict, *, gen: Optional[torch.Generator] = None,
+                      train_ar: bool = True, train: bool = True,
+                      noise_scale: float = 1.0):
+        """Stage-2 training forward (pipeline.py:485-588, the reference's
+        z_buffermodel.py:291-419).
+
+        batch: {"input_img", "output_img" (B, W, W, 3) in [-1, 1], "K",
+        "Kinv", "P_in", "Pinv_in", "P_out" (B, 4, 4)[, "depth_img"]}.  The
+        trainable trees (unet, projector, pixelcnn) run in train mode when
+        `train`, updating their batch / spectral statistics in place; the
+        VQ-VAE is frozen and the VGG19 only a loss.  NoiseBN noise comes
+        from `gen`; noise_scale=0.0 gives the deterministic forward (gain
+        1, bias 0).  Returns (total loss, losses, outputs, updates), the
+        last the trees' collections after the forward."""
+        mc = self.cfg.model
+        img, out_img = batch["input_img"], batch["output_img"]
+        cams = {k: batch[k] for k in ("K", "Kinv", "P_in", "Pinv_in", "P_out")}
+        updates = {"unet": None, "projector": None}
+        if mc.use_gt_depth and "depth_img" in batch:
+            depth = batch["depth_img"]
+        elif train:
+            depth, updates["unet"] = self.regress_depth(img, train=True)
+        else:
+            depth = self.regress_depth(img)
+        gen_fs, bg, _ = self.splat_view(self.features(img), depth, cams)
+
+        losses: Dict[str, torch.Tensor] = {}
+        ar_loss = None
+        with torch.no_grad():
+            codes = self.vq_encode(out_img)
+        if train_ar and not mc.no_outpainting:
+            _, masks, _ = self.masks_for_background(bg)
+            oh = F.one_hot(codes, mc.lmconv.num_classes).float()
+            ar_logits = self.pixelcnn_logits(oh, masks, train=train, gen=gen)
+            ar_loss = softmax_xent(ar_logits, codes)
+        # the ground-truth background stand-in: decoded GT codes
+        # (z_buffermodel.py:370-380) from the frozen VQ-VAE
+        with torch.no_grad():
+            input_gt = self.vq_decode(codes)
+        combined = self.combine(gen_fs, input_gt, bg)
+        if train:
+            gen_img, updates["projector"] = self.decode_image(
+                combined, bg, noise_scale=noise_scale, gen=gen, train=True)
+        else:
+            gen_img = self.decode_image(combined, bg, noise_scale=noise_scale, gen=gen)
+
+        losses.update(synthesis_loss(gen_img, out_img, losses=self.cfg.loss.losses,
+                                     vgg=self.vgg))
+        total = losses["Total Loss"]
+        if ar_loss is not None:
+            lam = self.cfg.loss.lambda_autoreg
+            total = total + ar_loss * (1.0 if lam is None else lam)
+            # bits-per-dim-style report (z_buffermodel.py:398)
+            losses["autoreg_loss"] = ar_loss.detach() / np.log(2.0)
+        if mc.train_depth and "depth_img" in batch:
+            # supervised depth L1 (z_buffermodel.py:404-407)
+            depth_loss = (depth - batch["depth_img"]).abs().mean()
+            total = total + depth_loss
+            losses["depth_loss"] = depth_loss
+        losses["Total Loss"] = total
+        outputs = {
+            "PredImg": gen_img,
+            "OutputImg": out_img,
+            "InputImg": img,
+            "PredDepthImg": depth / 5.0 - 1.0,
+            "ForegroundImg": (~bg).float(),
+        }
+        return total, losses, outputs, updates
 
     @staticmethod
     def combine(gen_fs, decoded, bg_mask):

@@ -15,6 +15,12 @@ step uses onto the port's modules and returns their state dicts:
     :40-79), computed once here;
   * BatchNorm mean/var/scale/bias, StandingStatsBN buffers, NoiseBN
     gain_kernel/bias_kernel;
+  * with `trainable=True`, the stage-2 trainer's modules instead
+    (pipeline.build_modules(trainable=True)): every collection of each
+    tree carried as it is -- raw kernels (permuted), the spectral vectors
+    `u`/`v` (`u_gain`/`v_gain`/`u_bias`/`v_bias` for NoiseBN), every
+    `batch_stats` entry -- for unet, projector, vqvae, pixelcnn, disc and
+    vgg, so that one step of the port computes what one JAX step computes;
   * the PixelCNN tree loads into the `LMPixelCNN` module by name
     (`LMConv_i/{weight,bias,mask_weight}`, `GatedResnet_i/LMConv_{0,1}`,
     `GatedResnet_i/Nin_0/Dense_0`, `Nin_0/Dense_0`); lmconv taps keep their
@@ -92,16 +98,19 @@ def merge_collections(variables: Dict) -> Dict:
     return merged
 
 
-def from_jax_params(variables: Dict, cfg: Config) -> Dict[str, Dict]:
+def from_jax_params(variables: Dict, cfg: Config, *,
+                    trainable: bool = False) -> Dict[str, Dict]:
     """Flax variable trees -> {tree name: torch state dict} for every tree
     the view step uses (unet, projector, vqvae, disc, classifier,
-    pixelcnn)."""
+    pixelcnn), or with `trainable` every tree of the stage-2 trainer
+    (unet, projector, vqvae, disc, vgg, pixelcnn)."""
     import torch
 
     from pixelsynth_tpu_torch.pipeline import build_modules, build_pixelcnn
 
-    modules = build_modules(cfg, classifier_vars=variables.get("classifier"))
-    modules["pixelcnn"] = build_pixelcnn(cfg)
+    modules = build_modules(cfg, classifier_vars=variables.get("classifier"),
+                            trainable=trainable)
+    modules["pixelcnn"] = build_pixelcnn(cfg, trainable=trainable)
     out: Dict[str, Dict] = {}
     with torch.no_grad():
         for name, module in modules.items():
