@@ -114,10 +114,46 @@ def setup():
             getattr(ps, tree).double()
     before = {t: {n: p.detach().clone() for n, p in getattr(ps, t).named_parameters()}
               for t in TRAINABLE + ("disc",)}
-    step = make_dpr_train_step(ps, create_dpr_state(ps), noise_scale=0.0)
+    state = create_dpr_state(ps)
+    # the gradients the step hands each optimizer: d G_total / d G's
+    # parameters and d D_total / d D's, in the optimizers' parameter order
+    seen = {}
+    for name, tx in (("g", state.tx_g), ("d", state.tx_d)):
+        def spy(grads, _name=name, _update=tx.update):
+            seen[_name] = [g.detach().clone() for g in grads]
+            return _update(grads)
+        tx.update = spy
+    step = make_dpr_train_step(ps, state, noise_scale=0.0)
     metrics = step({k: torch.tensor(v, dtype=torch.float64) for k, v in batch.items()})
+    port_grads = {}
+    g_iter = iter(seen["g"])
+    for t in TRAINABLE:
+        port_grads[t] = {n: next(g_iter) for n, _ in getattr(ps, t).named_parameters()}
+    assert next(g_iter, None) is None
+    port_grads["disc"] = dict(zip((n for n, _ in ps.disc.named_parameters()),
+                                  seen["d"], strict=True))
     return dict(cfg=cfg, variables=variables, jax=out, ps=ps, before=before,
-                metrics=metrics)
+                metrics=metrics, grads=port_grads)
+
+
+@pytest.mark.parametrize("tree", TRAINABLE + ("disc",))
+def test_step_gradients_match_jax(setup, tree):
+    """The gradients the step gives its optimizers, against the JAX step's:
+    G's of the whole G loss (synthesis, perceptual, AR, hinge and feature
+    matching through D in eval), D's of the hinge D loss on the detached
+    prediction; every leaf to <= 1e-4 x its max |g| + 1e-6, the bound of
+    test_torch_train_forward's gradients."""
+    cfg, variables = setup["cfg"], setup["variables"]
+    _, _, grads, d_grads, _ = setup["jax"]
+    g_tree = d_grads if tree == "disc" else grads[tree]
+    want = grads_in_port_layout(cfg, variables, g_tree, tree)
+    got = setup["grads"][tree]
+    assert set(got) == set(want)
+    for name, w in want.items():
+        g = got[name].double().numpy()
+        assert g.shape == w.shape, name
+        err = float(np.abs(g - w).max())
+        assert err <= 1e-4 * float(np.abs(w).max()) + 1e-6, (name, err)
 
 
 def _adam_first(g, lr):
