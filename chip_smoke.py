@@ -51,7 +51,14 @@ prints the final ok line):
      seeded initialiser, one K2 launch and 33 K3 launches a G step; one
      step's K2 and K3 work held to their plain versions
      (`plain_kernels`); and 300 steps of the evidence protocol (W=64,
-     batch 8, 48 items), which must quarter the total loss.
+     batch 8, 48 items), which must quarter the total loss;
+  9. the stage-1 trainer at the VQVAEConfig defaults (W=256, batch 12): 6
+     steps from the data-dependent codebook init (no kernel); the
+     stage-3 trainer at the LMConvConfig defaults (32x32 codes, F=80,
+     batch 12) on K3: 6 steps, 33 K3 launches each, one step held to the
+     plain versions, then the inpainting preview through K1; and the
+     evidence curves of stages 1 and 3 (W=128), held to the bars of
+     tests/test_training_evidence.py beside the JAX package's curves.
 Each path's launch counts (and the wrappers' counts of plain-version
 calls) are zeroed just before it is driven and read just after.  The
 script ends with a `kernels` JSON line, the card's name
@@ -1701,6 +1708,304 @@ def phase_train_overfit(steps=300):
     return res
 
 
+def _steps_timed(step, batches):
+    """Run step(*b) for each b, each timed to its synchronise, from zeroed
+    counts and peak memory.  -> (per-step seconds, per-step metrics,
+    launches, peak bytes)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    secs, metrics = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        m = step(*b)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return secs, metrics, read_launches(), torch.cuda.max_memory_allocated()
+
+
+def _log_steps(tag, secs, metrics, peak):
+    import numpy as np
+
+    log(f"[{tag}] ms per step (steps 2-{len(secs)}): {1e3 * float(np.mean(secs[1:])):.1f} "
+        f"(each {json.dumps([round(1e3 * t, 1) for t in secs])}); peak memory "
+        f"{peak / 2 ** 30:.2f} GiB on {card_line()}")
+    for i, m in enumerate(metrics):
+        log(f"[{tag}] step {i} " + json.dumps({k: round(v, 5) for k, v in m.items()}))
+    if not all(np.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError(f"{tag}: a step gave a loss that is not finite")
+
+
+def _fits(run, B, tag):
+    """run(B) at batch B, halved while it does not fit the card."""
+    import torch
+
+    while True:
+        try:
+            return run(B), B
+        except torch.cuda.OutOfMemoryError:
+            if B == 1:
+                raise
+            log(f"[{tag}] batch {B} does not fit the card's memory: halving it")
+            torch.cuda.empty_cache()
+            B //= 2
+
+
+def phase_train_vqvae(steps=6):
+    """The stage-1 trainer (train/vqvae.py) at full width: the VQVAEConfig
+    defaults (channel 128, 2 res blocks, n_res_channel 32, embed 64, 512
+    codes) at W=256, TrainConfig's batch (12, halved where it does not
+    fit), `steps` steps from the data-dependent codebook init on
+    structured images.  Losses finite; parameters and each codebook's
+    embed, cluster_size and embed_avg move.  No kernel is on this path
+    (its convolutions are cuDNN's)."""
+    import numpy as np
+    import torch
+    from pixelsynth_tpu_torch.tools.training_evidence import structured_images
+    from pixelsynth_tpu_torch.train.vqvae import (
+        build_vqvae, create_vqvae_state, make_vqvae_train_step,
+    )
+
+    cfg = _stage_cfg()
+    W, v = cfg.model.W, cfg.model.vqvae
+
+    def run(B):
+        rng = np.random.default_rng(0)
+        model = build_vqvae(v, device=DEVICE)
+        state = create_vqvae_state(model, torch.Generator().manual_seed(0),
+                                   init_batch=structured_images(rng, B, W))
+        before = {k: t.clone() for k, t in model.state_dict().items()}
+        batches = [(torch.as_tensor(structured_images(rng, B, W), device=DEVICE),)
+                   for _ in range(steps)]
+        out = _steps_timed(make_vqvae_train_step(model, state), batches)
+        return model, before, batches, out
+
+    (model, before, batches, (secs, metrics, launches, peak)), B = _fits(
+        run, cfg.train.batch_size, "train-vqvae")
+    check_no_plain("the stage-1 steps")
+    log(f"[train-vqvae] W={W} batch {B} channel {v.channel} n_res_channel "
+        f"{v.n_res_channel} embed {v.embed_dim} x {v.n_embed}")
+    _log_steps("train-vqvae", secs, metrics, peak)
+    now = model.state_dict()
+    params = [k for k, _ in model.named_parameters()]
+    if not any(not torch.equal(now[k], before[k]) for k in params):
+        raise AssertionError("stage 1: no parameter changed")
+    for q in ("quantize_t", "quantize_b"):
+        for leaf in ("embed", "cluster_size", "embed_avg"):
+            if torch.equal(now[f"{q}.{leaf}"], before[f"{q}.{leaf}"]):
+                raise AssertionError(f"stage 1: {q}.{leaf} did not move")
+    with torch.no_grad():
+        model.eval()
+        ids = model.encode(batches[-1][0])
+    log(f"[train-vqvae] {int(torch.unique(ids).numel())} distinct top codes of "
+        f"{v.n_embed} in the last batch ({ids.numel()} cells); changed "
+        f"{sum(not torch.equal(now[k], before[k]) for k in params)}/{len(params)} "
+        f"parameters; kernel launches {json.dumps({k: n for k, n in launches.items() if n})}")
+    del model, batches
+    torch.cuda.empty_cache()
+
+
+def _stage_cfg():
+    """The Config() defaults, the full width of stages 1 and 3."""
+    from pixelsynth_tpu_torch.config import Config
+
+    return Config()
+
+
+def _lm_setup(B, seed=0):
+    """A full-width stage-3 trainer: the LMConvConfig defaults (32x32
+    codes, F=80, nr_resnet 2, 512 classes) on K3 (backend "pallas", bf16),
+    a mask pool of the 8 variants of the raster, s-curve and Hilbert
+    orders (`masks_for_orders_batch`), low-entropy code grids."""
+    import numpy as np
+    import torch
+    from pixelsynth_tpu_torch.models.lmconv import LMPixelCNN
+    from pixelsynth_tpu_torch.ops.orders import (
+        augment_orders, hilbert_order, masks_for_orders_batch, raster_scan_order,
+        s_curve_order,
+    )
+    from pixelsynth_tpu_torch.train.lmconv import create_lmconv_state
+
+    cfg = _stage_cfg()
+    cfg.train.batch_size = B
+    l = cfg.model.lmconv
+    rows, cols = l.obs[1], l.obs[2]
+    model = LMPixelCNN(nr_resnet=l.nr_resnet, nr_filters=l.nr_filters,
+                       input_channels=l.input_channels, kernel_size=l.kernel_size,
+                       max_dilation=l.max_dilation, feature_norm=l.feature_norm,
+                       num_classes=l.num_classes, backend="pallas",
+                       compute_dtype=l.compute_dtype)
+    state = create_lmconv_state(model, torch.Generator().manual_seed(seed))
+    model.to(DEVICE)
+    orders = [o for base in (raster_scan_order, s_curve_order, hilbert_order)
+              for o in augment_orders(base(rows, cols), rows, cols)]
+    a, b, d = masks_for_orders_batch(orders, rows, cols, l.kernel_size, l.max_dilation)
+    pool = np.stack([a, b, d], 1)
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 16, (64, rows // 4, cols // 4))
+    codes = np.kron(base, np.ones((1, 4, 4), np.int64)).astype(np.int64)
+
+    def batch():
+        return (torch.as_tensor(codes[rng.integers(len(codes), size=B)], device=DEVICE),
+                torch.as_tensor(pool[rng.integers(len(pool), size=B)], device=DEVICE))
+
+    return cfg, model, state, batch, np.stack(orders), codes
+
+
+def phase_train_lmconv(report, steps=6):
+    """The stage-3 trainer (train/lmconv.py) at full width, batch 12
+    (halved where it does not fit), every masked conv on K3 (its
+    differentiable entry): `steps` steps launch K3 33 times a step (the
+    one-hot first layer, Cin 513, on its f32 kernel) and no plain version.
+    Then one step's loss and gradients with the kernels and inside
+    `plain_kernels`: the loss within 2e-2 relative, each gradient leaf
+    within 2e-2 of its max|g|.  Then `lmconv_sample_preview` at full
+    width (4 images, frac 0.6, decoded through a seeded VQ-VAE), which
+    launches K1 (sample_backend "fused") and no plain version; its PNG goes
+    under build/lmconv_preview/."""
+    import numpy as np
+    import torch
+    from pixelsynth_tpu_torch.models.lmconv import LMConv
+    from pixelsynth_tpu_torch.train.lmconv import lmconv_loss, make_lmconv_train_step
+    from pixelsynth_tpu_torch.train.loop import lmconv_sample_preview
+    from pixelsynth_tpu_torch.train.vqvae import build_vqvae
+
+    def run(B):
+        cfg, model, state, batch, orders, codes = _lm_setup(B)
+        batches = [batch() + (None,) for _ in range(steps)]
+        out = _steps_timed(make_lmconv_train_step(model, state), batches)
+        return cfg, model, batch, orders, codes, out
+
+    (cfg, model, batch, orders, codes, (secs, metrics, launches, peak)), B = _fits(
+        run, _stage_cfg().train.batch_size, "train-lmconv")
+    check_no_plain("the stage-3 steps")
+    l = cfg.model.lmconv
+    n_k3 = sum(isinstance(m, LMConv) for m in model.modules())
+    k3 = launches["masked_conv"] + launches["masked_conv_streamed"]
+    log(f"[train-lmconv] codes {l.obs[1]}x{l.obs[2]} F={l.nr_filters} nr_resnet "
+        f"{l.nr_resnet} classes {l.num_classes} batch {B} backend pallas ({l.compute_dtype})")
+    _log_steps("train-lmconv", secs, metrics, peak)
+    log(f"[train-lmconv] launches in {steps} steps: "
+        f"{json.dumps({k: n for k, n in launches.items() if n})} ({n_k3} masked convs)")
+    if n_k3 != 33 or k3 != steps * n_k3:
+        raise AssertionError(f"K3 launched {k3} times in {steps} stage-3 steps, not "
+                             f"33 a step ({n_k3} masked convs)")
+    record_launches(report, launches, ("masked_conv",), "the stage-3 steps")
+
+    # one step's work with the kernels and with their plain versions
+    codes_b, masks_b = batch()
+    params = list(model.parameters())
+    model.train()
+
+    def grads():
+        loss = lmconv_loss(model, codes_b, masks_b)
+        g = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        return float(loss.detach()), g
+
+    zero_launches()
+    got = grads()
+    kernel_launches = read_launches()
+    check_no_plain("the kernel side of the stage-3 check")
+    with plain_kernels():
+        zero_launches()
+        want = grads()
+        plain_launches = read_launches()
+    if kernel_launches["masked_conv"] != n_k3 or any(plain_launches.values()):
+        raise AssertionError(f"stage-3 check launches: kernel {json.dumps(kernel_launches)}, "
+                             f"plain {json.dumps(plain_launches)}")
+    loss_err = abs(got[0] - want[0]) / abs(want[0])
+    leaf_err = max(float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+                   for g, w in zip(got[1], want[1]))
+    log(f"[train-lmconv] K3 against plain inside a step: AR loss {got[0]:.9g} vs "
+        f"{want[0]:.9g} ({loss_err:.3e} relative), worst gradient leaf {leaf_err:.3e} "
+        f"of its max|g|")
+    if not (loss_err <= 2e-2 and leaf_err <= 2e-2):
+        raise AssertionError("stage 3: K3 disagrees with its plain version inside a step")
+
+    # the preview, K1 serving sample_backend "fused"
+    vq = build_vqvae(cfg.model.vqvae, device=DEVICE)
+    with torch.no_grad():
+        vq.reset(torch.Generator().manual_seed(1))
+    out = os.path.join(REPO, "build", "lmconv_preview", "preview.png")
+    n, frac = 4, 0.6
+    t0 = time.perf_counter()
+    zero_launches()
+    sampled = lmconv_sample_preview(cfg, model.state_dict(), vq, codes[:n], orders[:n], out,
+                                    frac=frac, device=DEVICE,
+                                    gen=torch.Generator(DEVICE).manual_seed(2))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check_no_plain("the stage-3 preview")
+    rows, cols = l.obs[1], l.obs[2]
+    cut = int(frac * rows * cols)
+    kept = all(np.array_equal(sampled[i][orders[i, :cut, 0], orders[i, :cut, 1]],
+                              codes[i][orders[i, :cut, 0], orders[i, :cut, 1]])
+               for i in range(n))
+    log(f"[train-lmconv] preview: {n} images, frac {frac}, {rows * cols - cut} cells "
+        f"sampled in {time.perf_counter() - t0:.2f} s, launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}; {out}")
+    if not kept or not os.path.exists(out):
+        raise AssertionError("the preview changed kept cells or wrote no PNG")
+    if launches["lmconv_up"] != rows * cols - cut or launches["lmconv_down"] != launches["lmconv_up"]:
+        raise AssertionError("the preview did not run one K1 forward (2 passes) a cell")
+    record_launches(report, launches, ("lmconv_up", "lmconv_down"), "the stage-3 preview")
+    del model, vq
+    torch.cuda.empty_cache()
+
+
+def phase_train_evidence():
+    """The evidence curves of stages 1 and 3 (tools/training_evidence.py:
+    stage 1 at W=128, batch 8, 1200 steps; stage 3 on codes from that
+    model, 300 steps; the JAX tool's protocol), into
+    build/train_evidence/, held to the bars of
+    tests/test_training_evidence.py:25-41 and printed beside the JAX
+    package's committed curves (evidence/vqvae.jsonl, lmconv.jsonl)."""
+    from pixelsynth_tpu_torch.tools.training_evidence import (
+        evidence_lmconv, evidence_vqvae,
+    )
+
+    out_dir = os.path.join(REPO, "build", "train_evidence")
+    t0 = time.perf_counter()
+    zero_launches()
+    vq = evidence_vqvae(out_dir, device=DEVICE, log_fn=lambda s: log(f"[evidence] {s}"))
+    evidence_lmconv(out_dir, vq=vq, device=DEVICE, log_fn=lambda s: log(f"[evidence] {s}"))
+    check_no_plain("the evidence runs")
+
+    def ends(path):
+        with open(path) as f:
+            rows = [json.loads(line) for line in f]
+        return rows[0], rows[-1], len(rows)
+
+    failed = []
+    for name, key in (("vqvae", "mse"), ("lmconv", "bpd")):
+        first, last, n = ends(os.path.join(out_dir, f"{name}.jsonl"))
+        jfirst, jlast, _ = ends(os.path.join(REPO, "evidence", f"{name}.jsonl"))
+        if name == "vqvae":
+            bars = {"last mse < first / 5": last["mse"] < first["mse"] / 5,
+                    "recon_psnr up > 5 dB": last["recon_psnr"] > first["recon_psnr"] + 5}
+            extra = (f", recon_psnr {first['recon_psnr']:.2f} -> {last['recon_psnr']:.2f} dB "
+                     f"(JAX {jfirst['recon_psnr']:.2f} -> {jlast['recon_psnr']:.2f})")
+        else:
+            bars = {"first bpd > 5": first["bpd"] > 5,
+                    "last bpd < first / 2": last["bpd"] < first["bpd"] * 0.5}
+            extra = ""
+        bars["at least 10 rows"] = n >= 10
+        log(f"[evidence] {name}: {key} {first[key]:.4f} (step {first['step']}) -> "
+            f"{last[key]:.4f} (step {last['step']}) (JAX {jfirst[key]:.4f} -> "
+            f"{jlast[key]:.4f}){extra} on {card_line()}")
+        for bar, holds in bars.items():
+            log(f"[evidence] {name} bar {bar}: {'holds' if holds else 'FAILS'}")
+            if not holds:
+                failed.append(f"{name}: {bar}")
+    log(f"[evidence] stages 1 and 3 in {time.perf_counter() - t0:.1f} s")
+    if failed:
+        raise AssertionError(f"evidence bars missed: {failed}")
+
+
 def main(argv):
     try:
         import torch
@@ -1735,6 +2040,9 @@ def main(argv):
         B = phase_train(report)
         phase_train_kernels(B)
         phase_train_overfit()
+        phase_train_vqvae()
+        phase_train_lmconv(report)
+        phase_train_evidence()
     log(f"[total] {time.perf_counter() - t0:.1f} s")
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"]

@@ -135,7 +135,7 @@ def build_modules(cfg: Config, classifier_vars=None, *,
                                    mc.normalize_before_residual,
                                    trainable=trainable),
         "vqvae": VQVAETop(v.in_channel, v.channel, v.n_res_block,
-                          v.n_res_channel, v.embed_dim, v.n_embed),
+                          v.n_res_channel, v.embed_dim, v.n_embed, v.decay, v.eps),
         "disc": MultiscaleDiscriminator(mc.ndf, trainable=trainable),
     }
     mods.update({"vgg": VGG19Features()} if trainable else
@@ -210,6 +210,34 @@ def random_pixelcnn_params(cfg: Config, gen: torch.Generator) -> Dict[str, torch
         lm(f"LMConv_{i}", Fc, Fc)
     dense("Nin_0/Dense_0", Fc, NC)
     return out
+
+
+def sampling_logits_fn(l, pixelcnn: LMPixelCNN, packed: Optional[Dict], masks):
+    """(codes, filled) -> logits closure for the AR population loop, by
+    `l.sample_backend` (l an LMConvConfig; pipeline.py:425-467): "fused" is
+    the fused forward (K1; `packed` from `pack_lmconv_params`, masks folded
+    once, outside the loop), with `.at`; "pallas" and "xla" go through the
+    per-layer module `pixelcnn` (K3, or the plain masked conv) and have no
+    `.at`, so the sampler takes one cell per forward."""
+    if l.sample_backend == "fused":
+        if l.feature_norm != "pono" or l.conv_mask_weight:
+            raise NotImplementedError(
+                'lmconv.sample_backend="fused" computes feature_norm="pono" '
+                "without conv_mask_weight only")
+        return make_fused_logits_fn(
+            packed, masks, nr_resnet=l.nr_resnet, max_dilation=l.max_dilation,
+            num_classes=l.num_classes, compute_dtype=l.compute_dtype)
+    # build_pixelcnn refused every other value than "pallas" and "xla"
+    triple = (masks[:, 0], masks[:, 1], masks[:, 2])
+    if l.sample_backend == "pallas" and masks.is_cuda:
+        # lay the masks out for K3 once, not at each of its launches
+        triple = (triple[0], prepare_mask(triple[1]), prepare_mask(triple[2]))
+
+    @torch.no_grad()
+    def fn(codes, filled):
+        return pixelcnn(None, *triple, codes=codes, filled=filled)
+
+    return fn
 
 
 class PixelSynth:
@@ -375,42 +403,11 @@ class PixelSynth:
     def vq_decode(self, codes):
         return self.vqvae.decode_code(codes)
 
-    @torch.no_grad()
-    def pixelcnn_logits_codes(self, codes, filled, masks):
-        """The module path on integer codes + filled mask (the
-        embedding-gather first layer): masks (B, 3, k^2, HW) stacked [init,
-        undilated, dilated], or that triple as a sequence (whose members
-        may be PreparedMasks).  Returns (B, H, W, num_classes) logits."""
-        m = (masks[:, 0], masks[:, 1], masks[:, 2]) if torch.is_tensor(masks) else masks
-        return self.pixelcnn(None, *m, codes=codes, filled=filled)
-
     def make_sampling_logits_fn(self, masks):
         """(codes, filled) -> logits closure for the AR population loop, by
-        `lmconv.sample_backend` (pipeline.py:425-467): "fused" is the fused
-        forward (K1; weights packed and masks folded once, outside the
-        loop), with `.at`; "pallas" and "xla" go through the per-layer
-        module (K3, or the plain masked conv) and have no `.at`, so the
-        sampler takes one cell per forward."""
-        l = self.cfg.model.lmconv
-        if l.sample_backend == "fused":
-            if l.feature_norm != "pono" or l.conv_mask_weight:
-                raise NotImplementedError(
-                    'lmconv.sample_backend="fused" computes feature_norm="pono" '
-                    "without conv_mask_weight only")
-            return make_fused_logits_fn(
-                self.packed, masks, nr_resnet=l.nr_resnet,
-                max_dilation=l.max_dilation, num_classes=l.num_classes,
-                compute_dtype=l.compute_dtype)
-        # build_pixelcnn refused every other value than "pallas" and "xla"
-        triple = (masks[:, 0], masks[:, 1], masks[:, 2])
-        if l.sample_backend == "pallas" and masks.is_cuda:
-            # lay the masks out for K3 once, not at each of its launches
-            triple = (triple[0], prepare_mask(triple[1]), prepare_mask(triple[2]))
-
-        def fn(codes, filled):
-            return self.pixelcnn_logits_codes(codes, filled, triple)
-
-        return fn
+        `lmconv.sample_backend` (`sampling_logits_fn`)."""
+        return sampling_logits_fn(self.cfg.model.lmconv, self.pixelcnn,
+                                  self.packed, masks)
 
     def decode_image(self, combined, bg_mask, *, noise_scale: float = 1.0,
                      gen: Optional[torch.Generator] = None, train: bool = False):

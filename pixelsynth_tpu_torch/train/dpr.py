@@ -40,20 +40,24 @@ class Adam:
     parameters as they are.  The learning rate of update i (counting
     applied updates from 0) is `peak` until `decay_start`, then falls
     linearly to 0 over `decay_steps` (optax join_schedules of a constant
-    and a linear schedule)."""
+    and a linear schedule); or `schedule(i)` where one is given
+    (train/schedulers.py)."""
 
     def __init__(self, params: Sequence[torch.nn.Parameter], peak: float,
                  betas, *, k: int = 1, decay_start: Optional[int] = None,
-                 decay_steps: int = 1):
+                 decay_steps: int = 1,
+                 schedule: Optional[Callable[[int], float]] = None):
         self.params = list(params)
         self.opt = torch.optim.Adam(self.params, lr=peak, betas=tuple(betas), eps=1e-8)
-        self.peak, self.k = peak, k
+        self.peak, self.k, self.schedule = peak, k, schedule
         self.decay_start, self.decay_steps = decay_start, decay_steps
         self.count = 0       # applied updates
         self.mini = 0        # gradients accumulated since the last one
         self.acc: Optional[List[torch.Tensor]] = None
 
     def lr_at(self, count: int) -> float:
+        if self.schedule is not None:
+            return float(self.schedule(count))
         if self.decay_start is None or count < self.decay_start:
             return self.peak
         frac = min((count - self.decay_start) / self.decay_steps, 1.0)

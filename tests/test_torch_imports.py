@@ -1,5 +1,5 @@
 """The port stands alone: no module of pixelsynth_tpu_torch (nor
-chip_smoke.py) imports JAX, Flax or the JAX package, and its entry points
+chip_smoke.py) imports JAX, Flax, optax or the JAX package, and its entry points
 default to the card."""
 
 import ast
@@ -9,7 +9,7 @@ import pytest
 import torch
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
-FORBIDDEN = {"jax", "jaxlib", "flax", "pixelsynth_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "pixelsynth_tpu"}
 
 
 def _sources():

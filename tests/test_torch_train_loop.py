@@ -142,3 +142,121 @@ def test_evidence_tool_dpr_stage(tmp_path):
     diag = json.loads((tmp_path / "dpr_noise_diag.json").read_text())
     assert diag["n_draws"] == 8 and np.isfinite(diag["noise_cost_db"])
     assert out["best_psnr"] == max(r["psnr_det"] for r in rows)
+
+
+def test_run_vqvae_checkpoint_and_resume(tmp_path):
+    """Stage 1 (mirroring tests/test_train_loops.py:30-40): a checkpoint
+    with the val MSE that picks the best, the strip PNG; a second call
+    restores it (the state saved is the state loaded) and trains on."""
+    from pixelsynth_tpu_torch.eval.harness import load_png
+    from pixelsynth_tpu_torch.train.loop import run_vqvae
+
+    cfg = _cfg()
+    logs = []
+    m1 = run_vqvae(cfg, str(tmp_path), epochs=1, iters_per_epoch=2, val_iters=1,
+                   log_fn=logs.append, device="cpu")
+    assert np.isfinite(m1["mse"]) and np.isfinite(m1["val_mse"])
+    ckpt = CheckpointManager(os.path.join(str(tmp_path), "vqvae"), best_metric="val_mse",
+                             best_mode="min")
+    saved = ckpt.restore(1)
+    assert ckpt.best_step() == 1 and saved["step"] == 2 and saved["opt"]["count"] == 2
+    v = saved["variables"]
+    assert torch.all(v["quantize_t.cluster_size"] > 0)
+    assert not torch.equal(v["quantize_t.embed"], v["quantize_t.embed_avg"])
+    png = load_png(str(tmp_path / "vqvae_samples" / "epoch_0001.png"))
+    assert png.shape == (2 * cfg.model.W, 2 * cfg.model.W, 3)
+    m2 = run_vqvae(cfg, str(tmp_path), epochs=2, iters_per_epoch=1, val_iters=1,
+                   log_fn=logs.append, device="cpu")
+    assert any("resumed from epoch 1" in s for s in logs) and np.isfinite(m2["mse"])
+    # the epochs run again from 0 after the restore, as the JAX loop's do
+    assert ckpt.latest_step() == 2 and ckpt.restore()["step"] == 4
+
+
+def test_run_lmconv_checkpoint_resume_and_preview(tmp_path):
+    """Stage 3 (mirroring tests/test_train_loops.py:43-50): bpd near
+    log2(512) at init, the val bpd on the EMA parameters, a checkpoint
+    with the EMA, the preview PNG decoded through a VQ-VAE; a resume."""
+    from pixelsynth_tpu_torch.eval.harness import load_png
+    from pixelsynth_tpu_torch.train.loop import run_lmconv
+    from pixelsynth_tpu_torch.train.vqvae import build_vqvae
+
+    cfg = _cfg()
+    cfg.model.lmconv.ema_decay = 0.9
+    vq = build_vqvae(cfg.model.vqvae, device="cpu")
+    with torch.no_grad():
+        vq.reset(torch.Generator().manual_seed(0))
+    logs = []
+    m = run_lmconv(cfg, str(tmp_path), epochs=1, iters_per_epoch=2, val_iters=1,
+                   preview_every=1, vq_model=vq, log_fn=logs.append, device="cpu")
+    assert np.isfinite(m["bpd"]) and m["bpd"] < 12 and np.isfinite(m["val_bpd"])
+    assert m["grad_norm"] > 0
+    ckpt = CheckpointManager(os.path.join(str(tmp_path), "lmconv"), best_metric="val_bpd",
+                             best_mode="min")
+    saved = ckpt.restore(1)
+    assert saved["step"] == 2 and len(saved["ema_params"]) == len(saved["variables"])
+    png = load_png(str(tmp_path / "lmconv_samples" / "epoch_0001.png"))
+    W = cfg.model.W
+    assert png.shape == (W, 4 * W, 3)
+    run_lmconv(cfg, str(tmp_path), epochs=1, iters_per_epoch=1, val_iters=1,
+               log_fn=logs.append, device="cpu")
+    assert any("resumed from epoch 1" in s for s in logs)
+    assert ckpt.restore()["step"] == 3
+
+
+def test_lmconv_sample_preview_keeps_the_first_cells(tmp_path):
+    """The preview keeps each order's first `frac` cells, fills the rest,
+    and writes a grey-code PNG; with sample_backend "fused" its logits
+    come from K1's entry (on the CPU its plain version, counted)."""
+    from pixelsynth_tpu_torch.eval.harness import load_png
+    from pixelsynth_tpu_torch.ops import lmconv_fused
+    from pixelsynth_tpu_torch.ops.orders import augment_orders, s_curve_order
+    from pixelsynth_tpu_torch.pipeline import build_pixelcnn, random_pixelcnn_params
+    from pixelsynth_tpu_torch.train.loop import lmconv_sample_preview
+    from pixelsynth_tpu_torch.weights import unflatten_tree
+
+    cfg = _cfg()
+    l = cfg.model.lmconv
+    assert l.sample_backend == "fused"
+    rows, cols = l.obs[1], l.obs[2]
+    model = build_pixelcnn(cfg)
+    with torch.no_grad():
+        model.load_flax(unflatten_tree(random_pixelcnn_params(
+            cfg, torch.Generator().manual_seed(1))))
+    codes = np.random.default_rng(2).integers(0, l.num_classes, (3, rows, cols))
+    order = np.stack(augment_orders(s_curve_order(rows, cols), rows, cols)[:3])
+    lmconv_fused.PLAIN_CALLS.update(dict.fromkeys(lmconv_fused.PLAIN_CALLS, 0))
+    out = lmconv_sample_preview(cfg, model.state_dict(), None, codes, order,
+                                str(tmp_path / "p.png"), frac=0.5, device="cpu",
+                                gen=torch.Generator().manual_seed(3))
+    keep = rows * cols // 2
+    for i in range(3):
+        first = order[i, :keep]
+        assert np.array_equal(out[i][first[:, 0], first[:, 1]],
+                              codes[i][first[:, 0], first[:, 1]])
+    assert not np.array_equal(out, codes) and out.min() >= 0 and out.max() < l.num_classes
+    assert lmconv_fused.PLAIN_CALLS["lmconv_up"] == rows * cols - keep
+    assert load_png(str(tmp_path / "p.png")).shape == (rows, 3 * cols, 3)
+
+
+def test_evidence_tool_vqvae_and_lmconv_stages(tmp_path):
+    """The evidence tool's stage 1 and stage 3 (on codes from that stage-1
+    model) at a tiny size write their curves with the JAX tool's keys."""
+    from pixelsynth_tpu_torch.tools.training_evidence import (
+        evidence_lmconv, evidence_vqvae, main, structured_images,
+    )
+
+    cfg = _cfg()
+    img = structured_images(np.random.default_rng(0), 2, 32)
+    assert img.shape == (2, 32, 32, 3) and img.min() >= -1 and img.max() <= 1
+    vq = evidence_vqvae(str(tmp_path), steps=3, log_every=2, device="cpu", cfg=cfg,
+                        log_fn=lambda s: None)
+    rows = [json.loads(line) for line in open(tmp_path / "vqvae.jsonl")]
+    assert [r["step"] for r in rows] == [0, 2] and {"mse", "latent", "recon_psnr"} <= set(rows[0])
+    assert vq["first_mse"] == rows[0]["mse"] and vq["last_mse"] == rows[-1]["mse"]
+    lm = evidence_lmconv(str(tmp_path), steps=2, log_every=1, device="cpu", cfg=cfg,
+                         vq=vq, log_fn=lambda s: None)
+    rows = [json.loads(line) for line in open(tmp_path / "lmconv.jsonl")]
+    assert [r["step"] for r in rows] == [0, 1] and {"bpd", "ce"} <= set(rows[0])
+    assert lm["first_bpd"] > 5
+    with pytest.raises(SystemExit):
+        main(["--out", str(tmp_path), "--stage", "nope"])
