@@ -1475,6 +1475,41 @@ def _n_k3_convs(ps):
     return sum(isinstance(m, LMConv) for m in ps.pixelcnn.modules())
 
 
+def _steps_timed(step, batches):
+    """Run step(*b) for each b, each timed to its synchronise, from zeroed
+    counts and peak memory.  -> (per-step seconds, per-step metrics,
+    launches, peak bytes)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    secs, metrics = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        m = step(*b)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return secs, metrics, read_launches(), torch.cuda.max_memory_allocated()
+
+
+def _fits(run, B, tag):
+    """run(B) at batch B, halved while it does not fit the card."""
+    import torch
+
+    while True:
+        try:
+            return run(B), B
+        except torch.cuda.OutOfMemoryError:
+            if B == 1:
+                raise
+        # out of the except block, so the failed run's tensors are free
+        log(f"[{tag}] batch {B} does not fit the card's memory: halving it")
+        torch.cuda.empty_cache()
+        B //= 2
+
+
 def _train_steps(cfg, steps):
     """`steps` G+D steps of a seeded trainer on synthetic batches, each timed
     to its synchronise; the counts zeroed just before and read just
@@ -1494,18 +1529,7 @@ def _train_steps(cfg, steps):
     before = {t: {k: v.clone() for k, v in getattr(ps, t).state_dict().items()}
               for t in ("unet", "projector", "pixelcnn", "disc")}
     gen = torch.Generator(DEVICE).manual_seed(1)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    zero_launches()
-    secs, losses = [], []
-    for b in batches:
-        t0 = time.perf_counter()
-        m = step(b, gen)
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-        losses.append({k: float(v) for k, v in m.items()})
-    launches = read_launches()
-    return ps, secs, losses, launches, torch.cuda.max_memory_allocated(), before
+    return (ps,) + _steps_timed(step, [(b, gen) for b in batches]) + (before,)
 
 
 def phase_train(report, steps=6):
@@ -1518,19 +1542,12 @@ def phase_train(report, steps=6):
     import numpy as np
     import torch
 
-    B = _train_cfg().train.batch_size
-    while True:
+    def run(B):
         cfg = _train_cfg(B)
-        try:
-            ps, secs, losses, launches, peak, before = _train_steps(cfg, steps)
-            break
-        except torch.cuda.OutOfMemoryError:
-            if B == 1:
-                raise
-            log(f"[train] batch {B} does not fit the card's memory: halving it")
-            ps = None
-            torch.cuda.empty_cache()
-            B //= 2
+        return (cfg,) + _train_steps(cfg, steps)
+
+    (cfg, ps, secs, losses, launches, peak, before), B = _fits(
+        run, _train_cfg().train.batch_size, "train")
     check_no_plain("the train steps")
     n_k3 = _n_k3_convs(ps)
     k3 = launches["masked_conv"] + launches["masked_conv_streamed"]
@@ -1708,25 +1725,6 @@ def phase_train_overfit(steps=300):
     return res
 
 
-def _steps_timed(step, batches):
-    """Run step(*b) for each b, each timed to its synchronise, from zeroed
-    counts and peak memory.  -> (per-step seconds, per-step metrics,
-    launches, peak bytes)."""
-    import torch
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    zero_launches()
-    secs, metrics = [], []
-    for b in batches:
-        t0 = time.perf_counter()
-        m = step(*b)
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-        metrics.append({k: float(v) for k, v in m.items()})
-    return secs, metrics, read_launches(), torch.cuda.max_memory_allocated()
-
-
 def _log_steps(tag, secs, metrics, peak):
     import numpy as np
 
@@ -1737,21 +1735,6 @@ def _log_steps(tag, secs, metrics, peak):
         log(f"[{tag}] step {i} " + json.dumps({k: round(v, 5) for k, v in m.items()}))
     if not all(np.isfinite(v) for m in metrics for v in m.values()):
         raise AssertionError(f"{tag}: a step gave a loss that is not finite")
-
-
-def _fits(run, B, tag):
-    """run(B) at batch B, halved while it does not fit the card."""
-    import torch
-
-    while True:
-        try:
-            return run(B), B
-        except torch.cuda.OutOfMemoryError:
-            if B == 1:
-                raise
-            log(f"[{tag}] batch {B} does not fit the card's memory: halving it")
-            torch.cuda.empty_cache()
-            B //= 2
 
 
 def phase_train_vqvae(steps=6):
