@@ -1062,9 +1062,15 @@ def check_no_plain(path):
 
 def record_launches(report, launches, names, path):
     """Write the launch counts of the kernels `names`, read just after the
-    path that runs them, into the report; each must have launched."""
+    path that runs them, into the report under that path
+    (`launches_by_path`); a kernel's `launches` is their sum over every
+    path that runs it.  Each must have launched."""
     for name in names:
-        report[name]["launches"] = launches[name]
+        by_path = report[name].setdefault("launches_by_path", {})
+        if path in by_path:
+            raise AssertionError(f"{path}: launches of {name} recorded twice")
+        by_path[path] = launches[name]
+        report[name]["launches"] = sum(by_path.values())
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on {path}")
 
@@ -1743,21 +1749,22 @@ def phase_train_vqvae(steps=6):
     codes) at W=256, TrainConfig's batch (12, halved where it does not
     fit), `steps` steps from the data-dependent codebook init on
     structured images.  Losses finite; parameters and each codebook's
-    embed, cluster_size and embed_avg move.  No kernel is on this path
-    (its convolutions are cuDNN's)."""
+    embed, cluster_size and embed_avg move.  Then the training loop `run_vqvae`
+    at that batch (`_run_loop_twice`).  No kernel is on this path (its
+    convolutions are cuDNN's)."""
     import numpy as np
     import torch
+    from pixelsynth_tpu_torch.pipeline import build_vqvae
     from pixelsynth_tpu_torch.tools.training_evidence import structured_images
-    from pixelsynth_tpu_torch.train.vqvae import (
-        build_vqvae, create_vqvae_state, make_vqvae_train_step,
-    )
+    from pixelsynth_tpu_torch.train.loop import run_vqvae
+    from pixelsynth_tpu_torch.train.vqvae import create_vqvae_state, make_vqvae_train_step
 
     cfg = _stage_cfg()
     W, v = cfg.model.W, cfg.model.vqvae
 
     def run(B):
         rng = np.random.default_rng(0)
-        model = build_vqvae(v, device=DEVICE)
+        model = build_vqvae(cfg).to(DEVICE)
         state = create_vqvae_state(model, torch.Generator().manual_seed(0),
                                    init_batch=structured_images(rng, B, W))
         before = {k: t.clone() for k, t in model.state_dict().items()}
@@ -1790,37 +1797,91 @@ def phase_train_vqvae(steps=6):
     del model, batches
     torch.cuda.empty_cache()
 
+    cfg.train.batch_size = B
+    zero_launches()
+    saved = _run_loop_twice("train-vqvae", run_vqvae, cfg, "vqvae", val_iters=1,
+                        sample_grid_every=1)
+    check_no_plain("run_vqvae")
+    for q in ("quantize_t", "quantize_b"):
+        if not bool((saved["variables"][f"{q}.cluster_size"] > 0).all()):
+            raise AssertionError(f"run_vqvae: {q} saved a cluster size that is not positive")
+    _check_png("train-vqvae", os.path.join("vqvae_run", "vqvae_samples"),
+               (2 * W, min(8, B) * W, 3))
+    torch.cuda.empty_cache()
+
+
+def _run_loop_twice(tag, run, cfg, name, **kw):
+    """A stage's training loop (`run_vqvae` / `run_lmconv`) on the card at `cfg`:
+    one epoch of 2 iterations into build/<name>_run/ (emptied first),
+    then a second call that restores its checkpoint and trains on.  The
+    metrics finite, the resume logged, the checkpoint's step 4.  ->
+    the checkpoint's state."""
+    import shutil
+
+    import numpy as np
+    from pixelsynth_tpu_torch.checkpoint import CheckpointManager
+
+    workdir = os.path.join(REPO, "build", f"{name}_run")
+    shutil.rmtree(workdir, ignore_errors=True)
+    logs = []
+    t0 = time.perf_counter()
+    for _ in range(2):
+        m = run(cfg, workdir, epochs=1, iters_per_epoch=2, device=DEVICE,
+                log_fn=logs.append, **kw)
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{tag}: {run.__name__} gave metrics that are not finite: {m}")
+    ckpt = CheckpointManager(os.path.join(workdir, name))
+    saved = ckpt.restore()
+    log(f"[{tag}] {run.__name__} twice (1 epoch of 2 iterations, then a resume) in "
+        f"{time.perf_counter() - t0:.2f} s: " + " | ".join(logs))
+    if not any("resumed from epoch 1" in s for s in logs) or saved["step"] != 4:
+        raise AssertionError(f"{tag}: {run.__name__} did not resume (checkpoint step "
+                             f"{saved['step']})")
+    return saved
+
+
+def _check_png(tag, sub, shape):
+    """build/<sub>/epoch_0001.png, a training loop's first epoch's PNG, has `shape`."""
+    from pixelsynth_tpu_torch.eval.harness import load_png
+
+    path = os.path.join(REPO, "build", sub, "epoch_0001.png")
+    got = load_png(path).shape
+    log(f"[{tag}] {path}: {got}")
+    if got != shape:
+        raise AssertionError(f"{tag}: {path} is {got}, not {shape}")
+
 
 def _stage_cfg():
-    """The Config() defaults, the full width of stages 1 and 3."""
+    """The Config() defaults, the full width of stages 1 and 3, on the
+    synthetic source (the only one ported)."""
     from pixelsynth_tpu_torch.config import Config
 
-    return Config()
+    cfg = Config()
+    cfg.dataset = "synthetic"
+    return cfg
 
 
 def _lm_setup(B, seed=0):
     """A full-width stage-3 trainer: the LMConvConfig defaults (32x32
-    codes, F=80, nr_resnet 2, 512 classes) on K3 (backend "pallas", bf16),
-    a mask pool of the 8 variants of the raster, s-curve and Hilbert
-    orders (`masks_for_orders_batch`), low-entropy code grids."""
+    codes, F=80, nr_resnet 2, 512 classes) built by
+    `build_pixelcnn(cfg, trainable=True)` with train_backend "pallas" (K3,
+    bf16), a mask pool of the 8 variants of the raster, s-curve and
+    Hilbert orders (`masks_for_orders_batch`), low-entropy code grids."""
     import numpy as np
     import torch
-    from pixelsynth_tpu_torch.models.lmconv import LMPixelCNN
     from pixelsynth_tpu_torch.ops.orders import (
         augment_orders, hilbert_order, masks_for_orders_batch, raster_scan_order,
         s_curve_order,
     )
+    from pixelsynth_tpu_torch.pipeline import build_pixelcnn
     from pixelsynth_tpu_torch.train.lmconv import create_lmconv_state
 
     cfg = _stage_cfg()
     cfg.train.batch_size = B
     l = cfg.model.lmconv
+    l.train_backend = "pallas"
     rows, cols = l.obs[1], l.obs[2]
-    model = LMPixelCNN(nr_resnet=l.nr_resnet, nr_filters=l.nr_filters,
-                       input_channels=l.input_channels, kernel_size=l.kernel_size,
-                       max_dilation=l.max_dilation, feature_norm=l.feature_norm,
-                       num_classes=l.num_classes, backend="pallas",
-                       compute_dtype=l.compute_dtype)
+    model = build_pixelcnn(cfg, trainable=True)
     state = create_lmconv_state(model, torch.Generator().manual_seed(seed))
     model.to(DEVICE)
     orders = [o for base in (raster_scan_order, s_curve_order, hilbert_order)
@@ -1843,26 +1904,29 @@ def phase_train_lmconv(report, steps=6):
     (halved where it does not fit), every masked conv on K3 (its
     differentiable entry): `steps` steps launch K3 33 times a step (the
     one-hot first layer, Cin 513, on its f32 kernel) and no plain version.
-    Then one step's loss and gradients with the kernels and inside
-    `plain_kernels`: the loss within 2e-2 relative, each gradient leaf
-    within 2e-2 of its max|g|.  Then `lmconv_sample_preview` at full
+    K3's device time inside a step, its f32 and bf16 kernels apart, from
+    the profiler.  Then one step's loss and gradients with the kernels and
+    inside `plain_kernels`: the loss within 2e-2 relative, each gradient
+    leaf within 2e-2 of its max|g|.  Then `lmconv_sample_preview` at full
     width (4 images, frac 0.6, decoded through a seeded VQ-VAE), which
     launches K1 (sample_backend "fused") and no plain version; its PNG goes
-    under build/lmconv_preview/."""
+    under build/lmconv_preview/.  Then the training loop `run_lmconv` with
+    train_backend "pallas", an EMA and the preview (`_run_loop_twice`): K3 33
+    times a step and a val forward, K1 twice a sampled cell."""
     import numpy as np
     import torch
     from pixelsynth_tpu_torch.models.lmconv import LMConv
+    from pixelsynth_tpu_torch.pipeline import build_vqvae
     from pixelsynth_tpu_torch.train.lmconv import lmconv_loss, make_lmconv_train_step
-    from pixelsynth_tpu_torch.train.loop import lmconv_sample_preview
-    from pixelsynth_tpu_torch.train.vqvae import build_vqvae
+    from pixelsynth_tpu_torch.train.loop import lmconv_sample_preview, run_lmconv
 
     def run(B):
         cfg, model, state, batch, orders, codes = _lm_setup(B)
         batches = [batch() + (None,) for _ in range(steps)]
         out = _steps_timed(make_lmconv_train_step(model, state), batches)
-        return cfg, model, batch, orders, codes, out
+        return cfg, model, state, batch, orders, codes, out
 
-    (cfg, model, batch, orders, codes, (secs, metrics, launches, peak)), B = _fits(
+    (cfg, model, state, batch, orders, codes, (secs, metrics, launches, peak)), B = _fits(
         run, _stage_cfg().train.batch_size, "train-lmconv")
     check_no_plain("the stage-3 steps")
     l = cfg.model.lmconv
@@ -1877,6 +1941,7 @@ def phase_train_lmconv(report, steps=6):
         raise AssertionError(f"K3 launched {k3} times in {steps} stage-3 steps, not "
                              f"33 a step ({n_k3} masked convs)")
     record_launches(report, launches, ("masked_conv",), "the stage-3 steps")
+    _k3_in_step(make_lmconv_train_step(model, state), [batch() + (None,) for _ in range(3)])
 
     # one step's work with the kernels and with their plain versions
     codes_b, masks_b = batch()
@@ -1910,7 +1975,7 @@ def phase_train_lmconv(report, steps=6):
         raise AssertionError("stage 3: K3 disagrees with its plain version inside a step")
 
     # the preview, K1 serving sample_backend "fused"
-    vq = build_vqvae(cfg.model.vqvae, device=DEVICE)
+    vq = build_vqvae(cfg).to(DEVICE)
     with torch.no_grad():
         vq.reset(torch.Generator().manual_seed(1))
     out = os.path.join(REPO, "build", "lmconv_preview", "preview.png")
@@ -1936,8 +2001,62 @@ def phase_train_lmconv(report, steps=6):
     if launches["lmconv_up"] != rows * cols - cut or launches["lmconv_down"] != launches["lmconv_up"]:
         raise AssertionError("the preview did not run one K1 forward (2 passes) a cell")
     record_launches(report, launches, ("lmconv_up", "lmconv_down"), "the stage-3 preview")
-    del model, vq
+    del model, state
     torch.cuda.empty_cache()
+
+    # the training loop: 2 runs of (2 steps, 1 val forward, the preview)
+    cfg.model.lmconv.ema_decay = 0.999
+    zero_launches()
+    _run_loop_twice("train-lmconv", run_lmconv, cfg, "lmconv", val_iters=1, preview_every=1,
+                vq_model=vq)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check_no_plain("run_lmconv")
+    log(f"[train-lmconv] run_lmconv launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    want = {"masked_conv": 2 * 3 * n_k3, "lmconv_up": 2 * (rows * cols - cut),
+            "lmconv_down": 2 * (rows * cols - cut)}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"run_lmconv: launches {json.dumps(launches)}, expected "
+                             f"{json.dumps(want)}")
+    _check_png("train-lmconv", os.path.join("lmconv_run", "lmconv_samples"),
+               (cfg.model.W, 4 * cfg.model.W, 3))
+    record_launches(report, launches, ("masked_conv", "lmconv_up", "lmconv_down"),
+                    "run_lmconv (two runs, the second resumed)")
+    del vq
+    torch.cuda.empty_cache()
+
+
+def _k3_in_step(step, batches):
+    """The device time of `len(batches)` stage-3 steps by the profiler:
+    K3's f32 kernel (the one-hot first layer), its bf16 kernels (the other
+    32 masked convs), every other kernel, over the steps' wall time; per
+    step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for b in batches:
+            step(*b)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / len(batches)
+    parts = {"k3_f32": [0.0, 0], "k3_bf16": [0.0, 0], "other": [0.0, 0]}
+    for e in prof.key_averages():
+        if e.device_time_total <= 0:
+            continue
+        part = ("k3_f32" if "masked_conv_f32_kernel" in e.key else
+                "k3_bf16" if "resident_kernel" in e.key or "layer_kernel" in e.key else
+                "other")
+        parts[part][0] += e.device_time_total / 1e3 / len(batches)
+        parts[part][1] += e.count / len(batches)
+    busy = sum(ms for ms, _ in parts.values())
+    log(f"[train-lmconv] device time a step by the profiler ({len(batches)} steps): "
+        + ", ".join(f"{k} {ms:.3f} ms in {n:.1f} kernels" for k, (ms, n) in parts.items())
+        + f"; busy {busy:.3f} ms of {1e3 * wall:.3f} ms wall (busy share "
+          f"{busy / (1e3 * wall):.3f}) on {card_line()}")
+    if parts["k3_f32"][1] == 0 or parts["k3_bf16"][1] == 0:
+        raise AssertionError("the profiler saw no K3 kernel in a stage-3 step")
 
 
 def phase_train_evidence():
@@ -2027,8 +2146,8 @@ def main(argv):
         phase_train_lmconv(report)
         phase_train_evidence()
     log(f"[total] {time.perf_counter() - t0:.1f} s")
-    keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms"]
+    keys = ["name", "route", "source", "replaces", "launches", "launches_by_path",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in report.values()]}))
     print(card_line())
     if only_kernels:

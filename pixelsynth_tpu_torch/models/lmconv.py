@@ -35,8 +35,7 @@ from pixelsynth_tpu_torch.ops.masked_conv import (
 )
 from pixelsynth_tpu_torch.ops.conv_pack import prepare_taps
 from pixelsynth_tpu_torch.ops.masked_conv_kernel import (
-    kernel_width, locally_masked_conv2d_kernel, locally_masked_conv2d_kernel_vjp,
-    raw_mask,
+    k3_layer_conv, kernel_width, locally_masked_conv2d_kernel_vjp, raw_mask,
 )
 
 BACKENDS = ("xla", "pallas")
@@ -123,9 +122,11 @@ class LMConv(FlaxNamed):
                 out = locally_masked_conv2d_kernel_vjp(x, mask, w, self.bias,
                                                        self.dilation, cdt)
             else:
-                out = locally_masked_conv2d_kernel(x, mask, w, self.bias,
-                                                   dilation=self.dilation,
-                                                   compute_dtype=cdt)
+                # the vjp entry's forward: a shape the bf16 kernel does not
+                # take (the one-hot first layer, Cin 513) runs the f32
+                # kernel on bf16-rounded operands
+                out = k3_layer_conv(x, mask, w, self.bias, dilation=self.dilation,
+                                    compute_dtype=cdt)
             if self.mask_weight is not None:
                 # the learned term on the mask itself is no part of the
                 # kernel: one (HW, k*k) @ (k*k, Cout) product beside it

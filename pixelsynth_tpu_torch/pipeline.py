@@ -122,7 +122,6 @@ def build_modules(cfg: Config, classifier_vars=None, *,
     levels = int(round(np.log2(mc.W)))
     if 2 ** levels != mc.W:
         raise ValueError("W must be a power of two")
-    v = mc.vqvae
     n_cls = 365
     if classifier_vars is not None:
         n_cls = int(np.asarray(classifier_vars["params"]["Dense_0"]["kernel"]).shape[-1])
@@ -134,13 +133,20 @@ def build_modules(cfg: Config, classifier_vars=None, *,
                                    mc.predict_residual,
                                    mc.normalize_before_residual,
                                    trainable=trainable),
-        "vqvae": VQVAETop(v.in_channel, v.channel, v.n_res_block,
-                          v.n_res_channel, v.embed_dim, v.n_embed, v.decay, v.eps),
+        "vqvae": build_vqvae(cfg),
         "disc": MultiscaleDiscriminator(mc.ndf, trainable=trainable),
     }
     mods.update({"vgg": VGG19Features()} if trainable else
                 {"classifier": ResNet18(n_cls)})
     return mods
+
+
+def build_vqvae(cfg: Config) -> VQVAETop:
+    """The VQ-VAE of `cfg.model.vqvae`, on the CPU, unloaded: the view
+    step's encoder and decoder and the stage-1 trainer's model."""
+    v = cfg.model.vqvae
+    return VQVAETop(v.in_channel, v.channel, v.n_res_block, v.n_res_channel,
+                    v.embed_dim, v.n_embed, v.decay, v.eps)
 
 
 SAMPLE_BACKENDS = ("fused", "pallas", "xla")
@@ -151,10 +157,11 @@ def build_pixelcnn(cfg: Config, *, trainable: bool = False) -> LMPixelCNN:
     (`pixelcnn_fast`, pipeline.py:226-231): the masked-conv backend is
     `lmconv.sample_backend`, with "fused" keeping the kernel backend for
     the module (the fused forward itself is `make_sampling_logits_fn`'s).
-    With `trainable` the training side (`pixelcnn`, :218-225): the backend
-    is `lmconv.train_backend` ("xla" the plain masked conv, "pallas" K3
-    under its differentiable entry), with `compute_dtype` only for
-    "pallas", and the parameters require grad."""
+    With `trainable` the training side (`pixelcnn`, :218-225, and the
+    stage-3 trainer's model): the backend is `lmconv.train_backend` ("xla"
+    the plain masked conv, "pallas" K3 under its differentiable entry),
+    with `compute_dtype` only for "pallas", and the parameters require
+    grad."""
     l = cfg.model.lmconv
     backend = l.train_backend if trainable else l.sample_backend
     backends = ("pallas", "xla") if trainable else SAMPLE_BACKENDS

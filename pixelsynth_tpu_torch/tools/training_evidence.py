@@ -81,13 +81,12 @@ def evidence_vqvae(out_dir: str, *, W: int = 128, steps: int = 1200,
     """Stage 1 from the data-dependent codebook init on fresh structured
     batches; logs mse, latent and recon_psnr (10 log10(4 / mse), the
     [-1, 1] range)."""
-    from pixelsynth_tpu_torch.train.vqvae import (
-        build_vqvae, create_vqvae_state, make_vqvae_train_step,
-    )
+    from pixelsynth_tpu_torch.pipeline import build_vqvae
+    from pixelsynth_tpu_torch.train.vqvae import create_vqvae_state, make_vqvae_train_step
 
     cfg = cfg or evidence_cfg(W)
     W = cfg.model.W
-    model = build_vqvae(cfg.model.vqvae, device=device)
+    model = build_vqvae(cfg).to(device)
     rng = np.random.default_rng(seed)
     state = create_vqvae_state(model, torch.Generator().manual_seed(seed), lr=3e-4,
                                init_batch=structured_images(rng, 8, W))
@@ -121,8 +120,10 @@ def evidence_lmconv(out_dir: str, *, W: int = 128, steps: int = 300,
     result: 8 batches of structured images encoded), or on synthetic
     low-entropy grids (64 grids of 8 symbols) without one; masks from the
     8 variants of the raster and of the s-curve order.  The PixelCNN is
-    built as the JAX tool builds it: the plain masked conv."""
-    from pixelsynth_tpu_torch.models.lmconv import LMPixelCNN
+    `pipeline.build_pixelcnn(cfg, trainable=True)`: with the default
+    `lmconv.train_backend` ("xla") the plain masked conv the JAX tool
+    builds."""
+    from pixelsynth_tpu_torch.pipeline import build_pixelcnn
     from pixelsynth_tpu_torch.ops.orders import (
         augment_orders, masks_for_orders_batch, raster_scan_order, s_curve_order,
     )
@@ -144,10 +145,7 @@ def evidence_lmconv(out_dir: str, *, W: int = 128, steps: int = 300,
     else:
         codes_all = rng.integers(0, 8, (64, rows, cols))
 
-    model = LMPixelCNN(nr_resnet=l.nr_resnet, nr_filters=l.nr_filters,
-                       input_channels=l.input_channels, kernel_size=l.kernel_size,
-                       max_dilation=l.max_dilation, feature_norm=l.feature_norm,
-                       num_classes=l.num_classes)
+    model = build_pixelcnn(cfg, trainable=True)
     state = create_lmconv_state(model, torch.Generator().manual_seed(seed))
     model.to(device)
     step_fn = make_lmconv_train_step(model, state)

@@ -19,7 +19,7 @@ the VGG19 stay frozen.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import torch
 
@@ -27,41 +27,33 @@ from pixelsynth_tpu_torch.models.losses import (
     discriminator_scores, hinge_d_loss, hinge_g_loss,
 )
 from pixelsynth_tpu_torch.pipeline import PixelSynth
+from pixelsynth_tpu_torch.train.schedulers import Schedule, niter_schedule
 
 TRAINABLE = ("unet", "projector", "pixelcnn")
 FROZEN = ("vqvae", "vgg")
 
 
 class Adam:
-    """optax.adam(schedule, b1, b2) [inside optax.MultiSteps(k)] over a list
-    of parameters, on torch.optim.Adam.  `update(grads)` takes one gradient
+    """optax.adam(lr, b1, b2) [inside optax.MultiSteps(k)] over a list of
+    parameters, on torch.optim.Adam.  `update(grads)` takes one gradient
     per parameter; every k-th call applies Adam to their running mean (the
     MultiSteps mean, acc + (g - acc) / (n + 1)); the others leave the
-    parameters as they are.  The learning rate of update i (counting
-    applied updates from 0) is `peak` until `decay_start`, then falls
-    linearly to 0 over `decay_steps` (optax join_schedules of a constant
-    and a linear schedule); or `schedule(i)` where one is given
-    (train/schedulers.py)."""
+    parameters as they are.  lr is a constant or, as optax takes it, a
+    schedule of the applied updates' count from 0 (train/schedulers.py)."""
 
-    def __init__(self, params: Sequence[torch.nn.Parameter], peak: float,
-                 betas, *, k: int = 1, decay_start: Optional[int] = None,
-                 decay_steps: int = 1,
-                 schedule: Optional[Callable[[int], float]] = None):
+    def __init__(self, params: Sequence[torch.nn.Parameter],
+                 lr: Union[float, Schedule], betas, *, k: int = 1):
         self.params = list(params)
-        self.opt = torch.optim.Adam(self.params, lr=peak, betas=tuple(betas), eps=1e-8)
-        self.peak, self.k, self.schedule = peak, k, schedule
-        self.decay_start, self.decay_steps = decay_start, decay_steps
+        self.schedule = lr if callable(lr) else (lambda count: lr)
+        self.opt = torch.optim.Adam(self.params, lr=self.lr_at(0), betas=tuple(betas),
+                                    eps=1e-8)
+        self.k = k
         self.count = 0       # applied updates
         self.mini = 0        # gradients accumulated since the last one
         self.acc: Optional[List[torch.Tensor]] = None
 
     def lr_at(self, count: int) -> float:
-        if self.schedule is not None:
-            return float(self.schedule(count))
-        if self.decay_start is None or count < self.decay_start:
-            return self.peak
-        frac = min((count - self.decay_start) / self.decay_steps, 1.0)
-        return self.peak * (1.0 - frac)
+        return float(self.schedule(count))
 
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor]):
@@ -133,13 +125,16 @@ def create_dpr_state(ps: PixelSynth, *, steps_per_epoch: int = 500) -> DPRTrainS
     if not ps.trainable:
         raise ValueError("create_dpr_state needs PixelSynth(cfg, trainable=True)")
     tc = ps.cfg.train
-    decay = {}
-    if tc.niter is not None:
-        decay = dict(decay_start=tc.niter * steps_per_epoch,
-                     decay_steps=tc.niter_decay * steps_per_epoch)
+
+    def lr(peak):
+        if tc.niter is None:
+            return peak
+        return niter_schedule(peak, tc.niter * steps_per_epoch,
+                              tc.niter_decay * steps_per_epoch)
+
     betas = (tc.beta1, tc.beta2)
-    tx_g = Adam(gen_params(ps), tc.lr_g, betas, k=tc.num_accumulations, **decay)
-    tx_d = Adam(ps.disc.parameters(), tc.lr_d, betas, k=tc.num_accumulations, **decay)
+    tx_g = Adam(gen_params(ps), lr(tc.lr_g), betas, k=tc.num_accumulations)
+    tx_d = Adam(ps.disc.parameters(), lr(tc.lr_d), betas, k=tc.num_accumulations)
     return DPRTrainState(ps, tx_g, tx_d)
 
 

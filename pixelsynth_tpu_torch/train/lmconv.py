@@ -42,13 +42,16 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float
 
 
 class LMTrainState:
-    """The model, the clipped Adam, the EMA parameters (or None) and the
-    step count."""
+    """The model, the clipped Adam, the EMA parameters and their decay (or
+    None and None) and the step count."""
 
     def __init__(self, model: LMPixelCNN, opt: Adam, clip: float,
-                 ema_params: Optional[List[torch.Tensor]]):
+                 ema_decay: Optional[float]):
         self.model, self.opt, self.clip = model, opt, clip
-        self.ema_params = ema_params
+        self.ema_decay = ema_decay or None
+        self.ema_params: Optional[List[torch.Tensor]] = None
+        if self.ema_decay is not None:
+            self.ema_params = [p.detach().clone() for p in model.parameters()]
         self.step = 0
 
     def ema_state_dict(self) -> Optional[Dict[str, torch.Tensor]]:
@@ -87,9 +90,8 @@ def create_lmconv_state(model: LMPixelCNN, gen: Optional[torch.Generator], *,
             model.reset(gen)
     model.requires_grad_(True)
     params = list(model.parameters())
-    opt = Adam(params, lr, (0.9, 0.999), schedule=step_schedule(lr, lr_decay))
-    ema = [p.detach().clone() for p in params] if ema_decay else None
-    return LMTrainState(model, opt, clip, ema)
+    opt = Adam(params, step_schedule(lr, lr_decay), (0.9, 0.999))
+    return LMTrainState(model, opt, clip, ema_decay)
 
 
 def lmconv_loss(model: LMPixelCNN, codes: torch.Tensor, masks: torch.Tensor, *,
@@ -103,11 +105,11 @@ def lmconv_loss(model: LMPixelCNN, codes: torch.Tensor, masks: torch.Tensor, *,
     return softmax_xent(model(oh, *triple, gen=gen), codes)
 
 
-def make_lmconv_train_step(model: LMPixelCNN, state: LMTrainState, *,
-                           ema_decay: Optional[float] = None) -> Callable:
+def make_lmconv_train_step(model: LMPixelCNN, state: LMTrainState) -> Callable:
     """(codes (B, H, W) int, masks (B, 3, k^2, HW), gen) -> metrics {ce,
-    bpd, grad_norm} (tensors; grad_norm before clipping).  gen: the
-    torch.Generator of the dropout draws, on the device."""
+    bpd, grad_norm} (tensors; grad_norm before clipping), the EMA updated
+    with `state.ema_decay`.  gen: the torch.Generator of the dropout
+    draws, on the device."""
     params = list(model.parameters())
 
     def step(codes, masks, gen: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
@@ -116,10 +118,11 @@ def make_lmconv_train_step(model: LMPixelCNN, state: LMTrainState, *,
         grads = _grads(loss, params)
         gnorm = global_norm(grads)
         state.opt.update(clip_by_global_norm(grads, state.clip))
-        if state.ema_params is not None and ema_decay is not None:
+        d = state.ema_decay
+        if d is not None:
             with torch.no_grad():
                 for e, p in zip(state.ema_params, params):
-                    e.copy_(e * ema_decay + p * (1 - ema_decay))
+                    e.copy_(e * d + p * (1 - d))
         state.step += 1
         ce = loss.detach()
         return {"ce": ce, "bpd": ce / math.log(2.0), "grad_norm": gnorm.detach()}

@@ -25,7 +25,7 @@ import torch
 
 from pixelsynth_tpu_torch.checkpoint import CheckpointManager
 from pixelsynth_tpu_torch.config import Config
-from pixelsynth_tpu_torch.pipeline import PixelSynth
+from pixelsynth_tpu_torch.pipeline import PixelSynth, build_pixelcnn, build_vqvae
 from pixelsynth_tpu_torch.train.dpr import (
     create_dpr_state, make_dpr_eval_step, make_dpr_train_step,
 )
@@ -153,12 +153,10 @@ def run_vqvae(cfg: Config, workdir: str, *, epochs: int = 1,
     `<workdir>/vqvae_samples/`.  An existing checkpoint is restored first
     and the epochs run again from 0, as the JAX loop does."""
     from pixelsynth_tpu_torch.eval.harness import save_png
-    from pixelsynth_tpu_torch.train.vqvae import (
-        build_vqvae, create_vqvae_state, make_vqvae_train_step,
-    )
+    from pixelsynth_tpu_torch.train.vqvae import create_vqvae_state, make_vqvae_train_step
 
     guard = PreemptionGuard()
-    model = build_vqvae(cfg.model.vqvae, device=device)
+    model = build_vqvae(cfg).to(device)
     init_img = make_batch_source(cfg, "train")()["input_img"]
     state = create_vqvae_state(model, torch.Generator().manual_seed(cfg.train.seed),
                                lr=lr, init_batch=init_img)
@@ -237,7 +235,7 @@ def lmconv_sample_preview(cfg: Config, lm_state_dict: Dict, vq_model, codes: np.
     from pixelsynth_tpu_torch.models.lmconv import flax_named_params
     from pixelsynth_tpu_torch.ops.lmconv_fused import pack_lmconv_params
     from pixelsynth_tpu_torch.ops.orders import masks_for_orders_batch, rank_from_flat_order
-    from pixelsynth_tpu_torch.pipeline import build_pixelcnn, sampling_logits_fn
+    from pixelsynth_tpu_torch.pipeline import sampling_logits_fn
     from pixelsynth_tpu_torch.sampling import ar_sample
 
     l = cfg.model.lmconv
@@ -291,10 +289,12 @@ def run_lmconv(cfg: Config, workdir: str, *, epochs: int = 1,
     (on the EMA parameters when `lmconv.ema_decay` is set) that picks the
     best checkpoint (min), and every `preview_every` epochs an inpainting
     preview decoded through `vq_model` (a VQVAETop) when given.  The model
-    is built as the JAX loop builds it (loop.py:443-447: the plain masked
-    conv).  An existing checkpoint is restored first and the epochs run
-    again from 0, as the JAX loop does."""
-    from pixelsynth_tpu_torch.models.lmconv import LMPixelCNN
+    is `pipeline.build_pixelcnn(cfg, trainable=True)`: its masked convs
+    take `lmconv.train_backend`, whose default "xla" is the plain masked
+    conv the JAX loop always builds (loop.py:443-447, which ignores the
+    field); "pallas" runs K3 under the gradient.  An existing checkpoint
+    is restored first and the epochs run again from 0, as the JAX loop
+    does."""
     from pixelsynth_tpu_torch.ops.orders import (
         augment_orders, masks_for_orders_batch, raster_scan_order,
     )
@@ -305,16 +305,13 @@ def run_lmconv(cfg: Config, workdir: str, *, epochs: int = 1,
     guard = PreemptionGuard()
     l = cfg.model.lmconv
     rows, cols = l.obs[1], l.obs[2]
-    model = LMPixelCNN(nr_resnet=l.nr_resnet, nr_filters=l.nr_filters,
-                       input_channels=l.input_channels, kernel_size=l.kernel_size,
-                       max_dilation=l.max_dilation, feature_norm=l.feature_norm,
-                       dropout_prob=l.dropout_prob, num_classes=l.num_classes)
+    model = build_pixelcnn(cfg, trainable=True)
     state = create_lmconv_state(model, torch.Generator().manual_seed(cfg.train.seed),
                                 ema_decay=l.ema_decay)
     model.to(device)
     if state.ema_params is not None:
         state.ema_params = [e.to(device) for e in state.ema_params]
-    step_fn = make_lmconv_train_step(model, state, ema_decay=l.ema_decay)
+    step_fn = make_lmconv_train_step(model, state)
 
     ckpt = CheckpointManager(os.path.join(workdir, "lmconv"), max_to_keep=2,
                              best_metric="val_bpd", best_mode="min")

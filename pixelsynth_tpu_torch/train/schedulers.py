@@ -7,7 +7,9 @@ schedule the JAX package builds:
     back to lr / 25 by 85%, then to lr / 625 at n_iter;
   * step: optax.exponential_decay(lr, 1, gamma), the lmconv StepLR;
   * cosine, linear, power: optax's cosine_decay / linear / polynomial;
-  * constant.
+  * constant;
+  * niter: the stage-2 decay, the peak until a step, then linearly to 0
+    (optax.join_schedules of a constant and a linear schedule).
 """
 
 from __future__ import annotations
@@ -86,6 +88,13 @@ def linear_schedule(lr: float, n_iter: int, lr_min: float = 0.0) -> Schedule:
 
 def power_schedule(lr: float, n_iter: int, power: float = 0.9) -> Schedule:
     return _polynomial(lr, 0.0, power, n_iter)
+
+
+def niter_schedule(peak: float, decay_start: int, decay_steps: int) -> Schedule:
+    """`peak` until update `decay_start`, then falling linearly to 0 over
+    `decay_steps` (train/dpr.py, discriminators.py update_learning_rate)."""
+    decay = linear_schedule(peak, decay_steps)
+    return lambda count: peak if count < decay_start else decay(count - decay_start)
 
 
 def get_schedule(name: str, lr: float, n_iter: int) -> Schedule:

@@ -20,13 +20,6 @@ from pixelsynth_tpu_torch.train.dpr import Adam, _grads
 LATENT_LOSS_WEIGHT = 0.25  # train_vqvae.py:30
 
 
-def build_vqvae(v, *, device="cuda") -> VQVAETop:
-    """The trainable VQ-VAE of a `VQVAEConfig`, unloaded, on `device`."""
-    model = VQVAETop(v.in_channel, v.channel, v.n_res_block, v.n_res_channel,
-                     v.embed_dim, v.n_embed, v.decay, v.eps)
-    return model.requires_grad_(True).to(device)
-
-
 class VQTrainState:
     """The model (its parameters and `ema` buffers), Adam and the step
     count."""
@@ -47,9 +40,11 @@ class VQTrainState:
 def create_vqvae_state(model: VQVAETop, gen: torch.Generator, *, lr: float = 3e-4,
                        init_batch=None, draws: Optional[Dict] = None) -> VQTrainState:
     """Initialise `model` from `gen` (a CPU generator) and, given
-    init_batch (B, W, W, 3) images, its codebooks from the data."""
+    init_batch (B, W, W, 3) images, its codebooks from the data; make its
+    parameters trainable."""
     with torch.no_grad():
         model.reset(gen)
+    model.requires_grad_(True)
     if init_batch is not None:
         init_codebook_from_batch(model, init_batch, gen, draws=draws)
     return VQTrainState(model, Adam(model.parameters(), lr, (0.9, 0.999)))

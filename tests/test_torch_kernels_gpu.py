@@ -161,3 +161,29 @@ def test_k5_many_rows_on_card():
     sk, sv = K5.sort_kv_kernel(keys)
     ref_k, ref_v = torch.sort(keys, dim=1, stable=True)
     assert torch.equal(sk, ref_k) and torch.equal(sv.long(), ref_v)
+
+
+@pytest.mark.gpu
+def test_k3_pixelcnn_without_a_gradient_on_card():
+    """A "pallas" PixelCNN on one-hot codes without a gradient (the stage-3
+    trainer's val pass): the first layer (Cin 513, a shape the bf16 kernel
+    does not take) runs K3's f32 kernel as it does under a gradient, so
+    the loss equals the one with a gradient, and is within 2e-2 relative
+    of the plain masked conv's."""
+    _need_card()
+    import chip_smoke
+    from pixelsynth_tpu_torch.ops import masked_conv_kernel
+    from pixelsynth_tpu_torch.train.lmconv import lmconv_loss
+
+    cfg, model, state, batch, orders, codes = chip_smoke._lm_setup(2)
+    codes_b, masks_b = batch()
+    model.eval()
+    want = lmconv_loss(model, codes_b, masks_b)
+    before = masked_conv_kernel.LAUNCHES["masked_conv"]
+    with torch.no_grad():
+        got = lmconv_loss(model, codes_b, masks_b)
+    assert masked_conv_kernel.LAUNCHES["masked_conv"] - before == 33
+    torch.testing.assert_close(got, want.detach(), rtol=1e-6, atol=0)
+    with chip_smoke.plain_kernels(), torch.no_grad():
+        plain = lmconv_loss(model, codes_b, masks_b)
+    assert abs(float(got) - float(plain)) <= 2e-2 * abs(float(plain))

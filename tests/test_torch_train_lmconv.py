@@ -98,7 +98,7 @@ def step_setup():
 
     state.opt.update = spy
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    metrics = make_lmconv_train_step(model, state, ema_decay=EMA)(
+    metrics = make_lmconv_train_step(model, state)(
         torch.as_tensor(codes), torch.as_tensor(masks))
     names = [n for n, _ in model.named_parameters()]
     return dict(kw=kw, jax=out, model=model, state=state, metrics=metrics, before=before,

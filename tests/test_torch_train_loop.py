@@ -178,11 +178,11 @@ def test_run_lmconv_checkpoint_resume_and_preview(tmp_path):
     with the EMA, the preview PNG decoded through a VQ-VAE; a resume."""
     from pixelsynth_tpu_torch.eval.harness import load_png
     from pixelsynth_tpu_torch.train.loop import run_lmconv
-    from pixelsynth_tpu_torch.train.vqvae import build_vqvae
+    from pixelsynth_tpu_torch.pipeline import build_vqvae
 
     cfg = _cfg()
     cfg.model.lmconv.ema_decay = 0.9
-    vq = build_vqvae(cfg.model.vqvae, device="cpu")
+    vq = build_vqvae(cfg)
     with torch.no_grad():
         vq.reset(torch.Generator().manual_seed(0))
     logs = []

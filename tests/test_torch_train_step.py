@@ -31,6 +31,7 @@ from pixelsynth_tpu_torch.pipeline import PixelSynth
 from pixelsynth_tpu_torch.train.dpr import (
     TRAINABLE, Adam, create_dpr_state, make_dpr_eval_step, make_dpr_train_step,
 )
+from pixelsynth_tpu_torch.train.schedulers import niter_schedule
 from pixelsynth_tpu_torch.weights import from_jax_params
 
 from test_train_loops import tiny_cfg
@@ -276,9 +277,8 @@ def test_adam_matches_optax(k, niter):
             params = optax.apply_updates(params, upd)
         want = np.asarray(params)
     p = torch.nn.Parameter(torch.as_tensor(p0))
-    decay_kw = {} if niter is None else dict(decay_start=niter * spe,
-                                             decay_steps=decay * spe)
-    opt = Adam([p], peak, (0.0, 0.9), k=k, **decay_kw)
+    lr = peak if niter is None else niter_schedule(peak, niter * spe, decay * spe)
+    opt = Adam([p], lr, (0.0, 0.9), k=k)
     for g in grads:
         opt.update([torch.as_tensor(g)])
     # optax evaluates a schedule's learning rate in float32: 7 updates of
