@@ -45,7 +45,12 @@ prints the final ok line):
      through the weight bridge, walking directions R and L;
   7. the relay gate on that checkpoint (eval/relay_report.py at the
      report's sizes, K1, K2), held to the floors of
-     tests/test_relay_artifact.py beside the JAX report's numbers;
+     tests/test_relay_artifact.py beside the JAX report's numbers; then
+     the paper's evaluation protocol on it (`phase_eval`: eval_quality on
+     16 held-out pairs, eval_consistency and the fixtures on 8, the metric
+     batteries with seeded random PercSim / LPIPS / InceptionV3 networks
+     on the card; K1, K2), its PSNR held to the in-memory views' and its
+     networks to the same modules on the CPU;
   8. the stage-2 trainer at the Config() widths (W=256, batch 12,
      train_backend "pallas", a random-init VGG19): 6 G+D steps from the
      seeded initialiser, one K2 launch and 33 K3 launches a G step; one
@@ -1460,6 +1465,140 @@ def phase_relay(report, n_pairs=48, batch=8, consistency_items=16, num_samples=N
         raise AssertionError(f"relay floors failed: {failed}")
 
 
+def _psnr_png_bound(pred01, tgt01):
+    """Per image, the most the PSNR can move when both images are written
+    as 8-bit PNGs (each value truncated by less than d = 1/255): the RMS
+    error moves by at most d, so the PSNR by at most
+    20 log10(r / (r - d)) (r the RMS error, r > d)."""
+    import numpy as np
+
+    d = 1.0 / 255.0
+    r = np.sqrt(((pred01 - tgt01) ** 2).reshape(len(pred01), -1).mean(1))
+    return 20.0 * np.log10(r / np.maximum(r - d, 1e-12)), r > d
+
+
+def phase_eval(report, n_pairs=16, batch=8, consistency_items=8, seed=0):
+    """The paper's evaluation protocol on the trained checkpoint
+    (evidence/relay/stitched.npz, W=128): `eval_quality` on `n_pairs`
+    held-out pairs in batches of `batch`, `eval_consistency` and
+    `write_fixtures` on the first `consistency_items`, then
+    `calc_errors_quality` (PercSim VGG16 and the InceptionV3 FID features)
+    and `calc_errors_consistency` (the fixtures' masks and points), and
+    LPIPS over the same pairs, every network on the card with seeded random
+    weights: the printed PercSim, LPIPS and FID are smoke numbers, not the
+    paper's.  K1 and K2 must launch on the path and no plain version run.
+    Checks: every metric finite; calc_errors' PSNR (read from the PNGs)
+    within the 8-bit bound of the in-memory views' PSNR; PercSim, LPIPS and
+    the Inception features on the card within 1e-4 (relative) of the same
+    modules on the CPU.  Output under build/eval/."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from pixelsynth_tpu_torch.data.panorama import pair_items, val_pairs
+    from pixelsynth_tpu_torch.eval import harness
+    from pixelsynth_tpu_torch.eval.calc_errors import calc_errors_quality, load01
+    from pixelsynth_tpu_torch.eval.calc_errors_consistency import calc_errors_consistency
+    from pixelsynth_tpu_torch.eval.consistency_fixtures import write_fixtures
+    from pixelsynth_tpu_torch.eval.inception import make_fid_feature_fn
+    from pixelsynth_tpu_torch.eval.metrics import LPIPS, PercSim, psnr_clamped
+    from pixelsynth_tpu_torch.pipeline import PixelSynth
+
+    ps = PixelSynth.from_stitched(os.path.join(REPO, "evidence/relay/stitched.npz"),
+                                  device=DEVICE)
+    out = os.path.join(REPO, "build", "eval")
+    shutil.rmtree(out, ignore_errors=True)
+    quality, consistency = os.path.join(out, "quality"), os.path.join(out, "consistency")
+    fixtures = os.path.join(out, "fixtures")
+    items = pair_items(val_pairs(ps.W, n_pairs), direction_seed=9)
+    kw = dict(num_samples=ps.cfg.sample.num_samples, temperature=0.5,
+              batch_size=batch, seed=seed)
+    seen = {}                      # what eval_quality hands to save_png
+    save_png = harness.save_png
+    harness.save_png = lambda path, img: seen.__setitem__(path, np.asarray(img)) or \
+        save_png(path, img)
+    torch.cuda.synchronize()
+    zero_launches()
+    try:
+        t0 = time.perf_counter()
+        harness.eval_quality(ps, items, quality, **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        harness.eval_consistency(ps, items[:consistency_items], consistency, **kw)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    finally:
+        harness.save_png = save_png
+    write_fixtures(ps, items[:consistency_items], fixtures)
+    t3 = time.perf_counter()
+    gens = [torch.Generator().manual_seed(s) for s in (1, 2, 3)]
+    percsim = PercSim("vgg16", device=DEVICE, gen=gens[0])
+    lpips = LPIPS(device=DEVICE, gen=gens[1])
+    fid_fn = make_fid_feature_fn(device=DEVICE, gen=gens[2], batch=batch)
+    q = calc_errors_quality(quality, percsim=percsim, feature_fn=fid_fn, batch=batch,
+                            device=DEVICE)
+    directions = np.array([it["direction"] for it in items])
+    c = calc_errors_consistency(
+        consistency, directions, masks_dir=os.path.join(fixtures, "consistency_masks"),
+        points_dir=os.path.join(fixtures, "consistency_reference_points"),
+        percsim=percsim, device=DEVICE)
+    names = sorted(os.listdir(os.path.join(quality, "pred")))
+    pred = np.stack([load01(os.path.join(quality, "pred", n)) for n in names])
+    tgt = np.stack([load01(os.path.join(quality, "tgt", n)) for n in names])
+    lp = np.concatenate([lpips(pred[i:i + batch], tgt[i:i + batch])
+                         for i in range(0, len(names), batch)])
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    launches = read_launches()
+    check_no_plain("the eval path")
+    record_launches(report, launches, ("lmconv_up", "lmconv_down", "splat_blend"), "eval")
+    log(f"[eval] {n_pairs} pairs (batch {batch}, {kw['num_samples']} samples, T 0.5) in "
+        f"{t1 - t0:.2f} s = {(t1 - t0) / n_pairs:.3f} s an item; {consistency_items} "
+        f"consistency items in {t2 - t1:.2f} s = {(t2 - t1) / consistency_items:.3f} s an "
+        f"item; fixtures {t3 - t2:.2f} s; metrics {t4 - t3:.2f} s; on {card_line()}; "
+        f"launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    metrics = {**q, **c, "LPIPS": float(lp.mean())}
+    log("[eval] metrics (random-weight PercSim / LPIPS / FID networks: smoke numbers, "
+        "not the paper's) " + json.dumps(metrics))
+    bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+    if bad or len(names) != n_pairs:
+        raise AssertionError(f"eval metrics not finite: {bad} ({len(names)} pairs)")
+
+    # calc_errors' PSNR on the PNGs against the in-memory views' PSNR
+    def to01(img):   # save_png's rule: below -0.01 means [-1, 1]
+        return np.clip(img * 0.5 + 0.5 if img.min() < -0.01 else img, 0, 1)
+
+    mem_pred = np.stack([to01(seen[os.path.join(quality, "pred", n)]) for n in names])
+    mem_tgt = np.stack([to01(seen[os.path.join(quality, "tgt", n)]) for n in names])
+    mem_psnr = psnr_clamped(mem_pred, mem_tgt).numpy()
+    bound, valid = _psnr_png_bound(mem_pred, mem_tgt)
+    gap = abs(q["PSNR"] - float(mem_psnr.mean()))
+    log(f"[eval] PSNR from the PNGs {q['PSNR']:.4f} dB, in memory "
+        f"{float(mem_psnr.mean()):.4f} dB: gap {gap:.4f} dB, 8-bit bound "
+        f"{float(bound.mean()):.4f} dB")
+    if not valid.all() or gap > float(bound.mean()):
+        raise AssertionError("calc_errors' PSNR is outside the 8-bit bound of the views'")
+
+    # the eval nets on the card against the same modules on the CPU
+    cpu = [PercSim("vgg16", device="cpu", gen=torch.Generator().manual_seed(1)),
+           LPIPS(device="cpu", gen=torch.Generator().manual_seed(2)),
+           make_fid_feature_fn(device="cpu", gen=torch.Generator().manual_seed(3),
+                               batch=batch)]
+    a, b = pred[:batch], tgt[:batch]
+    for name, on_card, on_cpu in (("PercSim", percsim(a, b), cpu[0](a, b)),
+                                  ("LPIPS", lpips(a, b), cpu[1](a, b)),
+                                  ("Inception", fid_fn(a), cpu[2](a))):
+        err = float(np.abs(on_card - on_cpu).max() / np.abs(on_cpu).max())
+        log(f"[eval] {name} on the card against the CPU: max err {err:.2e} of its scale")
+        if not err <= 1e-4:
+            raise AssertionError(f"{name} on the card differs from the CPU by {err:.2e}")
+    times = {"PercSim": time_ms(lambda: percsim(a, b), warmup=1, reps=3, rounds=3),
+             "LPIPS": time_ms(lambda: lpips(a, b), warmup=1, reps=3, rounds=3),
+             "Inception": time_ms(lambda: fid_fn(a), warmup=1, reps=3, rounds=3)}
+    log(f"[eval] eval nets, ms a batch of {batch} at W={ps.W} (fp32, TF32 off): "
+        + json.dumps({k: round(v, 3) for k, v in times.items()}) + f" on {card_line()}")
+
+
 def _train_cfg(batch=None):
     """The trainer at the Config() widths (W=256, 32x32 codes, nr_filters
     80, nr_resnet 2, ngf/ndf 64, VQ channel 128, losses 1.0_l1 +
@@ -2139,6 +2278,7 @@ def main(argv):
         phase_view2(report)
         phase_walk()
         phase_relay(report)
+        phase_eval(report)
         B = phase_train(report)
         phase_train_kernels(B)
         phase_train_overfit()

@@ -34,7 +34,7 @@ the optional supervised-depth path (z_buffermodel.py:404-407).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -238,3 +238,24 @@ def val_pairs(W: int, n: int, max_rotation: float = 40.0) -> Dict[str, np.ndarra
     40.0)` (tools/run_relay.py:112-116).  Items draw from the generator in
     order, so the first n of a longer shard are this shard."""
     return synthesize_pano_shard(np.random.default_rng(777), n, W, max_rotation)
+
+
+def pair_items(shard: Dict[str, np.ndarray],
+               direction_seed: Optional[int] = None) -> List[Dict[str, np.ndarray]]:
+    """A pair shard -> its items as eval/harness.py reads them:
+    input_img, output_img (W, W, 3) in [-1, 1]; K, Kinv, P_in, Pinv_in,
+    P_out, Pinv_out (4, 4).  With `direction_seed`, each item also gets a
+    consistency `direction` (an index into DIRECTION_ORDER), drawn in turn
+    from numpy's default_rng(direction_seed)."""
+    rng = None if direction_seed is None else np.random.default_rng(direction_seed)
+    items = []
+    for i in range(shard["images"].shape[0]):
+        imgs = shard["images"][i].astype(np.float32) / 255.0 * 2.0 - 1.0
+        item = {"input_img": imgs[0], "output_img": imgs[1],
+                "K": shard["K"], "Kinv": shard["Kinv"],
+                "P_in": shard["P"][i, 0], "Pinv_in": shard["Pinv"][i, 0],
+                "P_out": shard["P"][i, 1], "Pinv_out": shard["Pinv"][i, 1]}
+        if rng is not None:
+            item["direction"] = int(rng.integers(8))
+        items.append(item)
+    return items

@@ -1,1 +1,2 @@
-"""Evaluation: image metrics, view consistency, the relay report."""
+"""Evaluation: image metrics and eval networks, view consistency, the paired
+and consistency harnesses with their metric batteries, the relay report."""

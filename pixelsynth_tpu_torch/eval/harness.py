@@ -1,5 +1,17 @@
-"""PNG files without PIL (port of `save_png` of pixelsynth_tpu/eval/harness.py,
-and its reader): the machines the port runs on need not have PIL.
+"""Evaluation harnesses and PNG files without PIL (port of
+pixelsynth_tpu/eval/harness.py, and a PNG reader).
+
+`eval_quality` mirrors evaluation/eval_quality.py (gen_paired_img over a
+paired set, saving input/ tgt/ pred/ fs/ PNGs, 112-154) and
+`eval_consistency` evaluation/eval_consistency.py (gen_two_imgs: the full
+and the half rotation of each item's fixed direction, 101-149); the metric
+battery (eval/calc_errors.py, eval/calc_errors_consistency.py) then reads
+the folders.  Items go through the sampling population in batches, the
+last batch padded by repeating its last item; the batch that starts at item
+i is drawn from seed + i, so a run sharded by `start`/`limit` on batch
+boundaries writes what one run writes.
+
+The machines the port runs on need not have PIL.
 
 `save_png` writes an 8-bit RGB PNG from zlib and struct alone, after the
 JAX package's rule: an image with values below -0.01 is taken as [-1, 1]
@@ -13,6 +25,8 @@ from __future__ import annotations
 import os
 import struct
 import zlib
+
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -128,3 +142,70 @@ def load_png(path: str) -> np.ndarray:
     """A PNG file -> (H, W, C) uint8 (C as stored: 3 for RGB, 4 for RGBA)."""
     with open(path, "rb") as f:
         return decode_png(f.read())
+
+
+def _batches(dataset: Sequence[Dict], start: int, limit: Optional[int], batch_size: int):
+    """(first index, the real indices, the padded batch's items)."""
+    n = len(dataset) if limit is None else min(start + limit, len(dataset))
+    for i0 in range(start, n, batch_size):
+        idxs = list(range(i0, min(i0 + batch_size, n)))
+        padded = idxs + [idxs[-1]] * (batch_size - len(idxs))
+        yield i0, idxs, [dataset[j] for j in padded]
+
+
+def _stack(items: List[Dict]) -> Dict[str, np.ndarray]:
+    return {k: np.stack([np.asarray(it[k]) for it in items])
+            for k in items[0] if k != "direction"}
+
+
+def _np(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
+
+
+def eval_quality(ps, dataset: Sequence[Dict], out_dir: str, *, num_samples: int = 1,
+                 temperature: float = 0.5, limit: Optional[int] = None, start: int = 0,
+                 batch_size: int = 1, seed: int = 0) -> None:
+    """gen_paired_img over a paired dataset (items with input_img,
+    output_img (W, W, 3) in [-1, 1]; K, Kinv, P_in, Pinv_in, P_out (4, 4)):
+    writes input/ tgt/ pred/ fs/%04d.png under out_dir
+    (eval_quality.py:112-154)."""
+    from pixelsynth_tpu_torch.pipeline import CloudState
+    from pixelsynth_tpu_torch.scene import SceneGenerator
+
+    gen = SceneGenerator(ps, num_samples=num_samples, temperature=temperature,
+                         cloud_capacity=ps.W * ps.W)
+    for i0, idxs, items in _batches(dataset, start, limit, batch_size):
+        b = _stack(items)
+        cams = {k: b[k] for k in ("K", "Kinv", "P_in", "Pinv_in", "P_out")}
+        cloud = CloudState.empty(batch_size, ps.W * ps.W, 3, ps.device)
+        best, out = gen.generate_view(b["input_img"], cams, cloud, None, b["Pinv_in"],
+                                      seed + i0)
+        best, fs = _np(best), _np(out["gen_fs"])
+        for j, i in enumerate(idxs):
+            for sub, img in (("input", b["input_img"][j]), ("tgt", b["output_img"][j]),
+                             ("pred", best[j]), ("fs", fs[j])):
+                save_png(os.path.join(out_dir, sub, f"{i:04d}.png"), img)
+
+
+def eval_consistency(ps, dataset: Sequence[Dict], out_dir: str, *, num_samples: int = 1,
+                     temperature: float = 0.5, limit: Optional[int] = None,
+                     start: int = 0, batch_size: int = 1, seed: int = 0) -> None:
+    """gen_two_imgs per item (the items of `eval_quality` plus `direction`,
+    an index into DIRECTION_ORDER): the full and the half rotation of the
+    item's direction, written as %04d/output_image_<dir>_0002.png and
+    _0001.png (eval_consistency.py:101-149)."""
+    from pixelsynth_tpu_torch.geometry.paths import DIRECTION_ORDER
+    from pixelsynth_tpu_torch.scene import TwoImageGenerator
+
+    gen = TwoImageGenerator(ps, num_samples=num_samples, temperature=temperature,
+                            cloud_capacity=2 * ps.W * ps.W)
+    for i0, idxs, items in _batches(dataset, start, limit, batch_size):
+        directions = [DIRECTION_ORDER[int(it["direction"])] for it in items]
+        b = _stack(items)
+        outputs = gen.generate_two_imgs(b["input_img"], b["K"], b["Kinv"], b["P_in"],
+                                        b["Pinv_in"], directions, seed=seed + i0)
+        for j, i in enumerate(idxs):
+            folder = os.path.join(out_dir, f"{i:04d}")
+            for num in (2, 1):
+                save_png(os.path.join(folder, f"output_image_{directions[j]}_000{num}.png"),
+                         outputs[f"PredImg_{num}"][j])

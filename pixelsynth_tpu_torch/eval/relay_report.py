@@ -30,7 +30,9 @@ import numpy as np
 import torch
 
 from pixelsynth_tpu_torch.data.demo_data import demo_cameras
-from pixelsynth_tpu_torch.data.panorama import heldout_demo_world, render_view, val_pairs
+from pixelsynth_tpu_torch.data.panorama import (
+    heldout_demo_world, pair_items, render_view, val_pairs,
+)
 from pixelsynth_tpu_torch.eval.harness import load_png, save_png
 from pixelsynth_tpu_torch.eval.homography import consistency_exact
 from pixelsynth_tpu_torch.geometry.paths import (
@@ -64,18 +66,9 @@ def _to01(img) -> np.ndarray:
 def val_batches(shard: Dict[str, np.ndarray], batch: int) -> List[Dict]:
     """A `val_pairs` shard -> batches of {input_img, output_img (B, W, W, 3)
     in [-1, 1]; K, Kinv, P_in, Pinv_in, P_out, Pinv_out (B, 4, 4)}."""
-    n = shard["images"].shape[0]
-    items = []
-    for i in range(n):
-        imgs = shard["images"][i].astype(np.float32) / 255.0 * 2.0 - 1.0
-        items.append({
-            "input_img": imgs[0], "output_img": imgs[1],
-            "K": shard["K"], "Kinv": shard["Kinv"],
-            "P_in": shard["P"][i, 0], "Pinv_in": shard["Pinv"][i, 0],
-            "P_out": shard["P"][i, 1], "Pinv_out": shard["Pinv"][i, 1],
-        })
+    items = pair_items(shard)
     return [{k: np.stack([it[k] for it in items[i:i + batch]]) for k in items[0]}
-            for i in range(0, n, batch)]
+            for i in range(0, len(items), batch)]
 
 
 def paired_eval(ps, gen: SceneGenerator, batches: List[Dict],

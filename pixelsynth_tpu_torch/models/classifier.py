@@ -1,8 +1,17 @@
 """ResNet-18 scene classifier for candidate re-ranking (port of
 pixelsynth_tpu/models/classifier.py), loaded from a `classifier` tree in
-the `load_classifier_npz` layout (params + batch_stats)."""
+the `load_classifier_npz` layout (params + batch_stats).
+
+The loaders return that tree as numpy, as the JAX package's return it:
+`load_torch_resnet18` converts a torchvision resnet18 state dict exported
+as npz (the Places365 weights of the reference, demo.py:233-243),
+`load_classifier_npz` reads the slash-joined npz `save_classifier_npz`
+writes (the in-repo scene classifier); `classifier_from_variables` builds
+the module from either."""
 
 from __future__ import annotations
+
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -71,3 +80,59 @@ class ResNet18(FlaxNamed):
         for blk in self.blocks:
             h = blk(h)
         return self.Dense_0(h.mean((2, 3)))
+
+
+def load_torch_resnet18(npz_path: str) -> Dict:
+    """A torchvision resnet18 state dict exported as npz -> ResNet18
+    variables (params + batch_stats, numpy)."""
+    raw = dict(np.load(npz_path).items())
+
+    def conv(k):
+        return {"kernel": raw[k].transpose(2, 3, 1, 0)}
+
+    def bn(prefix):
+        return ({"scale": raw[f"{prefix}.weight"], "bias": raw[f"{prefix}.bias"]},
+                {"mean": raw[f"{prefix}.running_mean"], "var": raw[f"{prefix}.running_var"]})
+
+    params: Dict[str, Any] = {"Conv_0": conv("conv1.weight")}
+    stats: Dict[str, Any] = {}
+    params["BatchNorm_0"], stats["BatchNorm_0"] = bn("bn1")
+    for idx, (layer, sub) in enumerate((l, s) for l in range(1, 5) for s in range(2)):
+        base = f"layer{layer}.{sub}"
+        p: Dict[str, Any] = {"Conv_0": conv(f"{base}.conv1.weight"),
+                             "Conv_1": conv(f"{base}.conv2.weight")}
+        st: Dict[str, Any] = {}
+        p["BatchNorm_0"], st["BatchNorm_0"] = bn(f"{base}.bn1")
+        p["BatchNorm_1"], st["BatchNorm_1"] = bn(f"{base}.bn2")
+        if f"{base}.downsample.0.weight" in raw:
+            p["Conv_2"] = conv(f"{base}.downsample.0.weight")
+            p["BatchNorm_2"], st["BatchNorm_2"] = bn(f"{base}.downsample.1")
+        params[f"BasicBlock_{idx}"], stats[f"BasicBlock_{idx}"] = p, st
+    params["Dense_0"] = {"kernel": raw["fc.weight"].T, "bias": raw["fc.bias"]}
+    return {"params": params, "batch_stats": stats}
+
+
+def save_classifier_npz(path: str, variables: Dict) -> None:
+    """ResNet18 variables -> one npz of slash-joined keys."""
+    from pixelsynth_tpu_torch.weights import flatten_tree
+
+    np.savez_compressed(path, **flatten_tree(variables))
+
+
+def load_classifier_npz(path: str) -> Dict:
+    """Inverse of save_classifier_npz (numpy leaves)."""
+    from pixelsynth_tpu_torch.weights import unflatten_tree
+
+    with np.load(path) as z:
+        return unflatten_tree({k: z[k] for k in z.files})
+
+
+def classifier_from_variables(variables: Dict) -> ResNet18:
+    """A ResNet18 (on the CPU, eval mode) loaded from classifier variables
+    of any label space (the Dense kernel's width)."""
+    from pixelsynth_tpu_torch.weights import merge_collections
+
+    model = ResNet18(int(np.asarray(variables["params"]["Dense_0"]["kernel"]).shape[-1]))
+    with torch.no_grad():
+        model.load_flax(merge_collections(variables))
+    return model.eval()

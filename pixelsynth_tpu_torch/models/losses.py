@@ -109,6 +109,19 @@ class VGG19Features(FlaxNamed):
         return outs
 
 
+def load_torch_vgg19(npz_path: str) -> Dict:
+    """torchvision vgg19.features weights saved as an npz of
+    '<idx>.weight' / '<idx>.bias' OIHW arrays -> the `vgg` variables tree
+    ({"params": {"Conv_<i>": {kernel (HWIO), bias}}}, numpy) that
+    `VGG19Features.load_flax(weights.merge_collections(tree))` loads, as
+    the JAX package's loader returns it."""
+    with np.load(npz_path) as raw:
+        conv_ids = sorted(int(k.split(".")[0]) for k in raw.files if k.endswith(".weight"))
+        return {"params": {f"Conv_{i}": {"kernel": raw[f"{cid}.weight"].transpose(2, 3, 1, 0),
+                                         "bias": raw[f"{cid}.bias"]}
+                           for i, cid in enumerate(conv_ids)}}
+
+
 PERCEPTUAL_WEIGHTS = (1.0 / 32, 1.0 / 16, 1.0 / 8, 1.0 / 4, 1.0)
 
 

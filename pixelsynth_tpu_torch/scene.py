@@ -201,11 +201,16 @@ class SceneGenerator:
     def generate_scene(self, img, K, Kinv, P_in, Pinv_in, *,
                        directions: Optional[List[str]] = None,
                        num_split: Optional[int] = None,
-                       seed: int = 0) -> Dict[str, np.ndarray]:
+                       seed: int = 0, two_imgs: bool = False,
+                       sequential: bool = False) -> Dict[str, np.ndarray]:
         """Full scene walk (z_buffermodel.py:421-592): per direction the
-        full rotation first, then back toward the input.  Returns {"PredImg_<dir>_<i>": (B,W,W,3), ...}
-        plus FeaturesImg per view, PredDepthImg / ForegroundImg for each
-        full rotation, and CloudValidCount."""
+        full rotation first, then back toward the input (:471-529), or with
+        `sequential` outward from the input, numerators 0..n
+        (opt.sequential_outpainting, :531-589).  `two_imgs` takes the split
+        counts of gen_two_imgs (num_split_for_direction).  Returns
+        {"PredImg_<dir>_<i>": (B,W,W,3), ...} plus FeaturesImg per view,
+        PredDepthImg / ForegroundImg for each full rotation, and
+        CloudValidCount."""
         ps = self.ps
         sc = ps.cfg.sample
         directions = list(directions or sc.directions)
@@ -221,8 +226,9 @@ class SceneGenerator:
         last_num = last_dir = None
         outputs: Dict[str, torch.Tensor] = {"InputImg": img}
         for direction in directions:
-            n_split = num_split_for_direction(direction, base_split)
-            nums = [n_split] + list(reversed(range(n_split)))
+            n_split = num_split_for_direction(direction, base_split, two_imgs)
+            nums = (list(range(n_split + 1)) if sequential
+                    else [n_split] + list(reversed(range(n_split))))
             for num in nums:
                 if last_num is None:
                     cin_inv, cin = Pinv_in, P_in

@@ -118,3 +118,78 @@ def from_jax_params(variables: Dict, cfg: Config, *,
                 module.load_flax(merge_collections(variables[name]))
                 out[name] = module.state_dict()
     return out
+
+
+def eval_net_state_dict(net: str, variables: Dict) -> Dict:
+    """The JAX package's eval-net variables (Flax `params` and
+    `batch_stats` trees, numpy) -> the port's state dict of that net:
+    net "vgg16" | "alex" | "squeeze" (eval/metrics.py, the Flax modules'
+    `Conv_<i>` / `conv0` / `fire<i>` names onto torchvision's indices) or
+    "inception" (eval/inception.py, the same names; BatchNorm scale ->
+    weight, mean / var -> running_mean / running_var)."""
+    import torch
+
+    from pixelsynth_tpu_torch.eval.inception import InceptionV3Features
+    from pixelsynth_tpu_torch.eval.metrics import PNET_NETS
+
+    module = InceptionV3Features() if net == "inception" else PNET_NETS[net]()
+    convs = [n for n, m in module.named_modules() if isinstance(m, torch.nn.Conv2d)]
+
+    def name(path: str) -> str:
+        if net in ("vgg16", "alex"):
+            return convs[int(path.split("_")[-1])]
+        if net == "squeeze":
+            return "0" if path == "conv0" else path.replace("fire", "").replace("/", ".")
+        return path.replace("/", ".")
+
+    leaf_names = {"kernel": "weight", "scale": "weight", "bias": "bias",
+                  "mean": "running_mean", "var": "running_var"}
+    sd = {}
+    for col in ("params", "batch_stats"):
+        for key, v in flatten_tree(variables.get(col, {})).items():
+            path, leaf = key.rsplit("/", 1)
+            v = np.asarray(v, np.float32)
+            if leaf == "kernel":
+                v = v.transpose(3, 2, 0, 1)
+            sd[f"{name(path)}.{leaf_names[leaf]}"] = torch.tensor(v)
+    for k, v in module.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            sd[k] = torch.zeros_like(v)
+    missing = set(module.state_dict()) ^ set(sd)
+    if missing:
+        raise KeyError(f"{net}: the variables and the module differ at {sorted(missing)[:5]}")
+    return sd
+
+
+def serving_state_dicts(trained: Dict, cfg: Config) -> Dict[str, Dict]:
+    """The stage-2 trainer's modules ({tree: module}, built with
+    `trainable=True` and loaded) -> the serving build's state dicts of the
+    view step's trees (unet, projector, vqvae, disc, pixelcnn): each
+    spectral weight divided by |mat^T v| with its stored v, which is what
+    the trainable build computes in eval mode; the entries only the trainer
+    keeps (the spectral vectors, StandingStatsBN's accumulation counter)
+    left out.  A module kept under two names (the U-Net's `final` is also
+    `SNConv_<n>`) is in the state dict twice and folded under both."""
+    import torch
+
+    from pixelsynth_tpu_torch.models.layers import Conv, NoiseBN
+    from pixelsynth_tpu_torch.pipeline import build_modules, build_pixelcnn
+
+    serving = build_modules(cfg)
+    serving.pop("classifier")
+    serving["pixelcnn"] = build_pixelcnn(cfg)
+    out: Dict[str, Dict] = {}
+    with torch.no_grad():
+        for name, module in serving.items():
+            t = trained[name]
+            sd = dict(t.state_dict())
+            for mname, m in t.named_modules(remove_duplicate=False):
+                pre = f"{mname}." if mname else ""
+                if isinstance(m, Conv) and m.sn_state:
+                    sd[pre + "weight"] = m.weight / torch.linalg.vector_norm(
+                        m._mat(m.weight).T @ m.v)
+                elif isinstance(m, NoiseBN) and m.sn_state:
+                    sd[pre + "wg"] = m.wg / torch.linalg.vector_norm(m.wg.T @ m.v_gain)
+                    sd[pre + "wb"] = m.wb / torch.linalg.vector_norm(m.wb.T @ m.v_bias)
+            out[name] = {k: sd[k].detach().cpu() for k in module.state_dict()}
+    return out

@@ -7,6 +7,7 @@ import os
 import pytest
 
 from pixelsynth_tpu_torch.ops import _cuda
+from torch_threads import _few_torch_threads  # noqa: F401
 
 SHARED = "lmconv_layer.cuh"
 

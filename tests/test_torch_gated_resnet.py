@@ -11,6 +11,7 @@ import torch
 
 from pixelsynth_tpu.ops.gated_resnet_pallas import gated_resnet_pallas
 from pixelsynth_tpu_torch.ops import gated_resnet_kernel as K4
+from torch_threads import _few_torch_threads  # noqa: F401
 
 B, H, W, F = 2, 8, 8, 16
 

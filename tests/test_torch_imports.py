@@ -7,6 +7,7 @@ import os
 
 import pytest
 import torch
+from torch_threads import _few_torch_threads  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "pixelsynth_tpu"}
@@ -53,3 +54,44 @@ def test_entry_points_default_to_the_card():
     cfg.model.lmconv.nr_filters = 16
     with pytest.raises((RuntimeError, AssertionError)):
         PixelSynth(cfg)
+
+
+# the modules of the evaluation slice: none may need OpenCV or PIL either
+# (the card's machine has neither)
+EVAL_MODULES = [
+    "pixelsynth_tpu_torch.ops.depth_splat", "pixelsynth_tpu_torch.eval.metrics",
+    "pixelsynth_tpu_torch.eval.inception", "pixelsynth_tpu_torch.eval.homography",
+    "pixelsynth_tpu_torch.eval.harness", "pixelsynth_tpu_torch.eval.calc_errors",
+    "pixelsynth_tpu_torch.eval.calc_errors_consistency",
+    "pixelsynth_tpu_torch.eval.consistency_fixtures", "pixelsynth_tpu_torch.utils.video",
+    "pixelsynth_tpu_torch.demo", "pixelsynth_tpu_torch.weights",
+    "pixelsynth_tpu_torch.models.classifier", "pixelsynth_tpu_torch.models.losses",
+]
+
+
+@pytest.mark.parametrize("name", EVAL_MODULES)
+def test_eval_modules_import_without_jax_opencv_or_pil(name):
+    import importlib
+
+    module = importlib.import_module(name)
+    with open(module.__file__) as f:
+        tree = ast.parse(f.read(), module.__file__)
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            found += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            found.append(node.module or "")
+    bad = [n for n in found if n.split(".")[0] in FORBIDDEN | {"cv2", "PIL"}]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("make", ["percsim", "lpips", "fid"])
+def test_eval_networks_default_to_the_card(make):
+    from pixelsynth_tpu_torch.eval.inception import make_fid_feature_fn
+    from pixelsynth_tpu_torch.eval.metrics import LPIPS, PercSim
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises((RuntimeError, AssertionError)):
+        {"percsim": PercSim, "lpips": LPIPS, "fid": make_fid_feature_fn}[make]()

@@ -8,6 +8,7 @@ import torch
 from pixelsynth_tpu_torch.config import Config
 from pixelsynth_tpu_torch.ops import lmconv_fused as K1
 from pixelsynth_tpu_torch.pipeline import random_pixelcnn_params
+from torch_threads import _few_torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("W,dilation,want", [

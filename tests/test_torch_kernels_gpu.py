@@ -9,6 +9,7 @@ JAX package, so it runs where only PyTorch is installed:
 
 import pytest
 import torch
+from torch_threads import _few_torch_threads  # noqa: F401
 
 
 def _need_card():

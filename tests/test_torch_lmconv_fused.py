@@ -13,6 +13,7 @@ from pixelsynth_tpu_torch.config import Config
 from pixelsynth_tpu_torch.ops import lmconv_fused as K1
 from pixelsynth_tpu_torch.pipeline import random_pixelcnn_params
 from pixelsynth_tpu_torch.weights import unflatten_tree
+from torch_threads import _few_torch_threads  # noqa: F401
 
 B, H, W, NC, F = 2, 8, 8, 16, 16
 

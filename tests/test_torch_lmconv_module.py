@@ -21,6 +21,7 @@ from pixelsynth_tpu_torch.models.lmconv_fast import (
 from pixelsynth_tpu_torch.ops import gated_resnet_kernel as K4
 from pixelsynth_tpu_torch.ops import lmconv_fused as K1
 from pixelsynth_tpu_torch.ops import masked_conv_kernel as K3
+from torch_threads import _few_torch_threads  # noqa: F401
 
 B, H, W, NC, F = 2, 8, 8, 16, 16
 TOL = dict(atol=3e-4, rtol=1e-3)

@@ -15,6 +15,7 @@ from pixelsynth_tpu.ops.masked_conv_pallas import (
 )
 from pixelsynth_tpu_torch.ops import masked_conv_kernel as K3
 from pixelsynth_tpu_torch.ops.masked_conv import locally_masked_conv2d
+from torch_threads import _few_torch_threads  # noqa: F401
 
 B, H, W, CIN, COUT = 2, 8, 8, 16, 32
 

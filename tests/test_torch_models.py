@@ -23,6 +23,7 @@ from pixelsynth_tpu_torch.pipeline import PixelSynth
 from pixelsynth_tpu_torch.weights import (
     flatten_tree, from_jax_params, load_stitched_npz,
 )
+from torch_threads import _few_torch_threads  # noqa: F401
 
 W = 32
 STITCHED = os.path.join(os.path.dirname(__file__), "..", "evidence", "relay",

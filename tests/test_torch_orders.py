@@ -13,6 +13,7 @@ from pixelsynth_tpu.pipeline import downsample_mask as jax_ds
 from pixelsynth_tpu_torch.ops.distance_transform import signed_distance_field
 from pixelsynth_tpu_torch.ops.orders import orders_and_masks
 from pixelsynth_tpu_torch.pipeline import binarize_trunc, downsample_mask
+from torch_threads import _few_torch_threads  # noqa: F401
 
 
 def _background(B=2, W=128, seed=0):

@@ -25,6 +25,7 @@ from pixelsynth_tpu_torch.eval.relay_report import scene_walk_metrics
 from pixelsynth_tpu_torch.geometry.paths import get_rt_from_rot
 from pixelsynth_tpu_torch.models.losses import ssim
 from test_metrics_precision import _np_ssim_f64
+from torch_threads import _few_torch_threads  # noqa: F401
 
 RELAY = os.path.join(os.path.dirname(__file__), "..", "evidence", "relay")
 SCENE = os.path.join(RELAY, "scene_out")

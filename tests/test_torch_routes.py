@@ -19,6 +19,7 @@ from pixelsynth_tpu_torch.ops import masked_conv_kernel as K3
 from pixelsynth_tpu_torch.ops.distance_transform import signed_distance_field
 from pixelsynth_tpu_torch.ops.orders import orders_and_masks
 from pixelsynth_tpu_torch.pipeline import random_pixelcnn_params
+from torch_threads import _few_torch_threads  # noqa: F401
 
 # (H, W, F, nr, dilation, compute_dtype) -> K1 route, K3 dtype of its convs
 K1_CASES = [

@@ -15,6 +15,7 @@ from pixelsynth_tpu_torch.pipeline import random_pixelcnn_params
 from pixelsynth_tpu_torch.sampling import (
     ar_sample, ar_sample_speculative, rank_candidates, sample_positions,
 )
+from torch_threads import _few_torch_threads  # noqa: F401
 
 B, H, W, NC = 2, 8, 8, 16
 

@@ -18,6 +18,7 @@ from pixelsynth_tpu.ops.sort_pallas import _LANES, _sort_network
 from pixelsynth_tpu_torch.config import SplatConfig
 from pixelsynth_tpu_torch.ops import sort_kernel as K5
 from pixelsynth_tpu_torch.ops import splat as S
+from torch_threads import _few_torch_threads  # noqa: F401
 
 # the package re-exports the function `splat` over the module's name
 jax_splat = importlib.import_module("pixelsynth_tpu.ops.splat")

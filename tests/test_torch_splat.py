@@ -13,6 +13,7 @@ from pixelsynth_tpu.ops.splat import _bin_points_batched as jax_bin
 from pixelsynth_tpu.ops.splat import splat as jax_splat
 from pixelsynth_tpu_torch.config import SplatConfig
 from pixelsynth_tpu_torch.ops import splat as K2
+from torch_threads import _few_torch_threads  # noqa: F401
 
 
 def _points(B=2, N=600, W=32, C=3, seed=0):

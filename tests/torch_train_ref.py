@@ -17,9 +17,9 @@ from unittest import mock
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 from pixelsynth_tpu.models import losses as jax_losses
+from torch_threads import _few_torch_threads  # noqa: F401
 
 
 def to64(tree):
@@ -90,17 +90,3 @@ def grads_in_port_layout(cfg, variables, grads, tree):
     with torch.no_grad():
         m.load_flax(merge_collections({**variables[tree], "params": grads}))
     return {n: p.detach().numpy() for n, p in m.named_parameters()}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _few_torch_threads():
-    """Two intra-op threads for the trainer's tests: the suite runs six
-    workers on the CPU's cores, and torch's default of one thread a core
-    in each of them leaves the small-op trainer graphs waiting on each
-    other's threads."""
-    import torch
-
-    old = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(old)
