@@ -50,7 +50,15 @@ prints the final ok line):
      16 held-out pairs, eval_consistency and the fixtures on 8, the metric
      batteries with seeded random PercSim / LPIPS / InceptionV3 networks
      on the card; K1, K2), its PSNR held to the in-memory views' and its
-     networks to the same modules on the CPU;
+     networks to the same modules on the CPU; then `phase_angle`: K2 at
+     C = 9 and 64 against its plain version (a view's own points and
+     points on the radius, one launch a call) and one backward at C = 64,
+     `forward_angle` on that checkpoint over nerf_like_circle(8) (one K2
+     launch a view, the views against the CPU run), the encoder
+     composition at the Config() widths (64-wide features through K2 into
+     a decoder on 64 + 1 channels: forward_angle, render_no_outpaint, one
+     view through K5), and depth_warp_forward, both baselines and the
+     two-level VQ-VAE at W=256 against the CPU;
   8. the stage-2 trainer at the Config() widths (W=256, batch 12,
      train_backend "pallas", a random-init VGG19): 6 G+D steps from the
      seeded initialiser, one K2 launch and 33 K3 launches a G step; one
@@ -639,6 +647,138 @@ def phase_k2(report, W=256, N=65536 * 2):
         f"slots, {pairs / 1e6:.2f} M covered pixel x slot pairs of "
         f"{n_valid * cfg.tile_size ** 2 / 1e6:.1f} M, {flops / 1e9:.3f} GFLOP, "
         f"{by / 1e6:.1f} MB, bound {max(t_ops, t_bytes):.4f} ms")
+
+
+def _view_points(W=256, B=2, seed=11, frame=1):
+    """A view's own splat input: B smooth depth maps at W (one point a
+    pixel, W*W an image) lifted into camera `frame` of nerf_like_circle(8)
+    -> (points (B, W*W, 3), valid (B, W*W)) on the card."""
+    import numpy as np
+    import torch
+    from pixelsynth_tpu_torch.geometry.projection import homogeneous_to_pixels, lift_to_cloud
+    from pixelsynth_tpu_torch.utils.camera_paths import nerf_like_circle
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.linspace(-1, 1, W), np.linspace(-1, 1, W), indexing="ij")
+    depth = np.stack([2.0 + np.sin(2 * xx + b) * np.cos(3 * yy)
+                      + 0.05 * rng.normal(size=xx.shape) for b in range(B)])
+    eye = torch.eye(4, device=DEVICE).expand(B, 4, 4)
+    RT = torch.as_tensor(nerf_like_circle(8)[frame], device=DEVICE).expand(B, 4, 4)
+    cloud = lift_to_cloud(torch.as_tensor(depth, dtype=torch.float32, device=DEVICE),
+                          eye, eye, eye, RT, W)
+    return homogeneous_to_pixels(cloud, W)
+
+
+def k2_wide_check(C, W=256, reps=10, timed=False):
+    """K2 at C feature channels (C > 8: ceil(C / 8) channel groups in the
+    one launch) against its plain version, alphacomposite: on a view's own
+    points (W=256, 2 images x 65536) and on points at the radius from the
+    edges of the warps' rectangles (`_radius_edge_points`), to 1e-5 of the
+    output's scale with the coverage identical; exactly `reps` launches in
+    `reps` calls by the wrapper and at most `reps` by the profiler.  With
+    `timed`, -> {err, ms, plain_ms, device_us, t_ops, t_bytes} of the
+    view's points."""
+    import torch
+    from pixelsynth_tpu_torch.config import SplatConfig
+    from pixelsynth_tpu_torch.ops import splat as K2
+
+    cfg = SplatConfig()
+    pts, vld = _view_points(W)
+    B, N, _ = pts.shape
+    fts = torch.randn((B, N, C), device=DEVICE,
+                      generator=torch.Generator(device=DEVICE).manual_seed(C))
+    slot_idx, slot_valid = K2._bin_points_batched(pts, vld, W, cfg)
+    ep = _radius_edge_points()
+    ef = torch.randn((1, ep.shape[1], C), device=DEVICE,
+                     generator=torch.Generator(device=DEVICE).manual_seed(C + 1))
+    ei, ev = K2._bin_points_batched(ep, torch.ones(ep.shape[:2], dtype=torch.bool,
+                                                   device=DEVICE), 512, cfg)
+    errs = []
+    for tag, args in (("view points", (pts, fts, slot_idx, slot_valid, W)),
+                      ("points on the radius", (ep, ef, ei, ev, 512))):
+        ok, ck = K2.blend_slots(*args, cfg)
+        op, cp = K2.blend_slots_plain(*args, cfg)
+        torch.cuda.synchronize()
+        err, scale = float((ok - op).abs().max()), float(op.abs().max())
+        same = bool(torch.equal(ck, cp))
+        errs.append(err)
+        log(f"[K2 C={C}] {tag}: max|kernel-plain| {err:.3e} (tolerance 1e-5 x scale "
+            f"{scale:.3f}), coverage identical {same} ({int(cp.sum())} of {cp.numel()} "
+            "pixels covered)")
+        if not (err <= 1e-5 * scale and same):
+            raise AssertionError(f"K2 at C={C} disagrees with its plain version ({tag})")
+    run = lambda: K2.blend_slots(pts, fts, slot_idx, slot_valid, W, cfg)  # noqa: E731
+    kernels, dev_us, counted = device_kernels(run, reps=reps)
+    check_one_kernel_a_call(f"[K2 C={C}]", "splat_blend", kernels, counted, reps)
+    if not timed:
+        return None
+    ms = time_ms(run)
+    pms = time_ms(lambda: K2.blend_slots_plain(pts, fts, slot_idx, slot_valid, W, cfg),
+                  reps=3, rounds=3)
+    # the function's own work, as phase_k2 counts it: the valid flags, each
+    # valid slot's index, the points and C features each read once, the
+    # image and coverage written once; 15 fp32 flops a covered pixel x slot
+    # pair for its weight (distance 5, alpha 7, transmittance and mass 3)
+    # and 2 a channel for the accumulation
+    M = slot_valid.shape[-1]
+    nT = slot_valid.shape[1]
+    n_valid = int(slot_valid.sum())
+    pairs = covered_pairs(pts, slot_idx, slot_valid, W, cfg)
+    flops = pairs * (15 + 2 * C)
+    by = (B * nT * M + n_valid * 8 + (pts.numel() + fts.numel()) * 4
+          + B * W * W * (4 * C + 1))
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, by / PEAK_BYTES * 1e3
+    log(f"[K2 C={C}] {ms:.4f} ms a call, device {dev_us:.1f} us, plain {pms:.3f} ms; "
+        f"{n_valid} valid slots, {pairs / 1e6:.2f} M covered pixel x slot pairs, "
+        f"{flops / 1e9:.3f} GFLOP ({t_ops * 1e3:.1f} us at 67 TFLOP/s), {by / 1e6:.1f} MB "
+        f"({t_bytes * 1e3:.1f} us at 3.35 TB/s): bound {max(t_ops, t_bytes):.4f} ms; "
+        f"on {card_line()}")
+    return dict(err=max(errs), ms=ms, plain_ms=pms, device_us=dev_us, t_ops=t_ops,
+                t_bytes=t_bytes)
+
+
+def k2_wide_backward(C=64, W=256):
+    """One backward of the splat at C channels under a gradient
+    (`_SplatBlendFn`: K2's forward, the plain recomputed VJP, as the JAX
+    package's `splat_pallas`) on a view's own points, held to autograd
+    through the plain blend to 1e-4 of each gradient's scale.  -> the
+    backward's ms (host clock around a synchronised call)."""
+    import torch
+    from pixelsynth_tpu_torch.config import SplatConfig
+    from pixelsynth_tpu_torch.ops import splat as K2
+
+    cfg = SplatConfig()
+    pts, vld = _view_points(W)
+    B, N, _ = pts.shape
+    g = torch.Generator(device=DEVICE).manual_seed(C + 2)
+    fts = torch.randn((B, N, C), device=DEVICE, generator=g)
+    cot = torch.randn((B, W, W, C), device=DEVICE, generator=g)
+    slot_idx, slot_valid = K2._bin_points_batched(pts, vld, W, cfg)
+    got, want, secs = [], [], []
+    for blend, into in ((K2.blend_slots, got), (K2.blend_slots_plain, want)):
+        p = pts.clone().requires_grad_(True)
+        f = fts.clone().requires_grad_(True)
+        count = lambda: K2.LAUNCHES["splat_blend"] + K2.PLAIN_CALLS["splat_blend"]  # noqa
+        before = count()
+        out, _ = blend(p, f, slot_idx, slot_valid, W, cfg)
+        launched = count() - before
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        into.extend(torch.autograd.grad(out, (p, f), cot))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if launched != (1 if blend is K2.blend_slots else 0):
+            raise AssertionError(f"the splat under a gradient launched K2 {launched} times")
+        del out
+    errs = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, want)]
+    log(f"[K2 C={C}] backward under a gradient: {secs[0] * 1e3:.2f} ms (autograd through "
+        f"the plain blend {secs[1] * 1e3:.2f} ms); d points, d feats against the plain "
+        f"blend's: {errs[0]:.2e}, {errs[1]:.2e} of their scale (tolerance 1e-4)")
+    if not max(errs) <= 1e-4:
+        raise AssertionError(f"the splat's gradient at C={C} differs from the plain blend's")
+    del got, want
+    torch.cuda.empty_cache()
+    return secs[0] * 1e3
 
 
 def _uniform(gen, shape, bound):
@@ -1599,6 +1739,205 @@ def phase_eval(report, n_pairs=16, batch=8, consistency_items=8, seed=0):
         + json.dumps({k: round(v, 3) for k, v in times.items()}) + f" on {card_line()}")
 
 
+def _max_err(a, b):
+    return max(float((x.float().cpu() - y.float().cpu()).abs().max()) for x, y in zip(a, b))
+
+
+def phase_angle(report, n_frames=8):
+    """forward_angle and the encoder composition on the card.
+      * K2 at C = 9 and C = 64 against its plain version
+        (`k2_wide_check`), one backward at C = 64 (`k2_wide_backward`);
+      * `forward_angle` on the trained checkpoint (stitched.npz, W=128,
+        RGB) over nerf_like_circle(n_frames): ms a view on the second call,
+        exactly one K2 launch a view and no plain version, views finite in
+        [-1, 1], the card's views against the port's own CPU run (the
+        decoder's noise from one CPU generator on both);
+      * the encoder composition at the Config() widths (W=256, ngf 64,
+        use_rgb_features=False, predict_residual=False, seeded random
+        weights, a projector on 64 + 1 channels): `forward_angle` and
+        `render_no_outpaint` over the same views, then one view with
+        sort_backend="pallas" (K5 feeding the 64-wide K2);
+      * card against CPU on the same seeded modules: depth_warp_forward at
+        W=256, ViewAppearanceFlow and Tatarchenko at W=256 (batch 2,
+        eval), the two-level VQVAE's encode and decode_code at W=256.
+    K2's and K5's launches from the forward_angle / render runs are
+    recorded under the path "angle"."""
+    import copy
+
+    import numpy as np
+    import torch
+    from pixelsynth_tpu_torch.config import Config
+    from pixelsynth_tpu_torch.models.baselines import Tatarchenko, ViewAppearanceFlow
+    from pixelsynth_tpu_torch.models.depth_model import depth_warp_forward
+    from pixelsynth_tpu_torch.models.vqvae import VQVAE
+    from pixelsynth_tpu_torch.pipeline import PixelSynth
+    from pixelsynth_tpu_torch.utils.camera_paths import nerf_like_circle
+
+    t_phase = time.perf_counter()
+    k2_wide_check(9)
+    wide = k2_wide_check(64, timed=True)
+    bwd_ms = k2_wide_backward(64)
+    RTs = nerf_like_circle(n_frames)
+    totals = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+
+    def timed_views(tag, fn, n_k2):
+        fn()                                           # warm-up
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        views = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / len(views)
+        launches = read_launches()
+        check_no_plain(tag)
+        add(launches)
+        ran = {k: v for k, v in launches.items() if v}
+        log(f"[angle] {tag}: {len(views)} views, {ms:.2f} ms a view (second call, host "
+            f"clock around a synchronised call) on {card_line()}; launches {json.dumps(ran)}")
+        if ran != {"splat_blend": n_k2}:
+            raise AssertionError(f"{tag}: launches {json.dumps(ran)}, expected "
+                                 f"{n_k2} K2 launches and nothing else")
+        for v in views:
+            if not (bool(torch.isfinite(v).all()) and float(v.abs().max()) <= 1.0):
+                raise AssertionError(f"{tag}: a view is not finite in [-1, 1]")
+        return views, ms
+
+    # the trained checkpoint, RGB features
+    path = os.path.join(REPO, "evidence/relay/stitched.npz")
+    ps = PixelSynth.from_stitched(path, device=DEVICE)
+    W = ps.W
+    img, cams = _view_inputs(W)
+    x = torch.as_tensor(img, device=DEVICE)
+    K = torch.as_tensor(cams["K"], device=DEVICE)
+    Kinv = torch.as_tensor(cams["Kinv"], device=DEVICE)
+    angle = lambda m, xx, KK, KKi, **kw: m.forward_angle(  # noqa: E731
+        xx, KK, KKi, RTs, gen=torch.Generator().manual_seed(2), **kw)
+    views, ckpt_ms = timed_views("forward_angle on stitched.npz",
+                                 lambda: angle(ps, x, K, Kinv), n_frames)
+    _, depth = angle(ps, x, K, Kinv, return_depth=True)
+    cpu = PixelSynth.from_stitched(path, device="cpu")
+    cpu_views, cpu_depth = angle(cpu, x.cpu(), K.cpu(), Kinv.cpu(), return_depth=True)
+    # a point that moves by an ulp of the depth can cross the splat radius
+    # or swap z order with a neighbour (ROADMAP Queue 3: the walk's float
+    # sensitivity), so single pixels may move by more: the check is on the
+    # depth, the mean error and the share of values off by more than 1e-3
+    d = torch.stack([(a.cpu() - b).abs() for a, b in zip(views, cpu_views)])
+    derr = _max_err([depth], [cpu_depth])
+    mean, off = float(d.mean()), float((d > 1e-3).float().mean())
+    log(f"[angle] forward_angle on stitched.npz, card against CPU: depth max err "
+        f"{derr:.2e}; views max err {float(d.max()):.2e}, mean {mean:.2e}, share of "
+        f"values off by more than 1e-3: {off:.2e} (tolerances: depth 1e-4 of its "
+        "scale, mean 1e-5, share 1e-3; fp32, TF32 off, sums in other orders)")
+    if not (derr <= 1e-4 * float(cpu_depth.abs().max()) and mean <= 1e-5 and off <= 1e-3):
+        raise AssertionError("forward_angle on the card differs from the CPU run")
+    del ps, cpu
+
+    # the encoder composition at the Config() widths
+    cfg = Config()
+    cfg.model.use_rgb_features = False
+    cfg.model.predict_residual = False
+    pe = PixelSynth(cfg, device=DEVICE, seed=0)
+    if pe.projector.in_channels != 65:
+        raise AssertionError(f"the projector reads {pe.projector.in_channels} channels")
+    W = cfg.model.W
+    img, cams = _view_inputs(W)
+    x = torch.as_tensor(img, device=DEVICE)
+    eye = torch.eye(4, device=DEVICE)[None]
+    enc_views, enc_ms = timed_views(
+        "forward_angle, encoder (64-wide features)",
+        lambda: pe.forward_angle(x, eye, eye, RTs, gen=torch.Generator().manual_seed(3)),
+        n_frames)
+    rcams = [{"K": eye, "Kinv": eye, "P_in": eye, "Pinv_in": eye,
+              "P_out": torch.as_tensor(RT, device=DEVICE)[None]} for RT in RTs]
+    render = lambda: [pe.render_no_outpaint(  # noqa: E731
+        x, c, gen=torch.Generator().manual_seed(4))["PredImg"] for c in rcams]
+    _, render_ms = timed_views("render_no_outpaint, encoder", render, n_frames)
+    fs = pe.render_no_outpaint(x, rcams[0], gen=torch.Generator().manual_seed(4))
+    if tuple(fs["FeaturesImg"].shape) != (1, W, W, 64):
+        raise AssertionError(f"the splatted features are {tuple(fs['FeaturesImg'].shape)}")
+    pe.cfg.model.splat.sort_backend = "pallas"
+    torch.cuda.synchronize()
+    zero_launches()
+    pallas = pe.render_no_outpaint(x, rcams[1], gen=torch.Generator().manual_seed(4))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check_no_plain("render_no_outpaint with sort_backend=pallas")
+    pe.cfg.model.splat.sort_backend = "xla"
+    ran = {k: v for k, v in launches.items() if v}
+    log(f"[angle] one encoder view with sort_backend=\"pallas\": launches {json.dumps(ran)}")
+    if ran != {"splat_blend": 1, "sort_kv": 1}:
+        raise AssertionError("expected one K5 and one K2 launch for the pallas-sorted view")
+    if not bool(torch.isfinite(pallas["PredImg"]).all()):
+        raise AssertionError("the pallas-sorted encoder view is not finite")
+    add(launches)
+    record_launches(report, totals, ("splat_blend", "sort_kv"), "angle")
+    n64 = 2 * n_frames + 1
+    report["splat_blend_c64"] = _entry(
+        "splat_blend_c64", "splat_blend.cu", "pixelsynth_tpu/ops/splat_pallas.py:40",
+        wide["err"], wide["ms"], wide["plain_ms"], wide["t_ops"], wide["t_bytes"])
+    report["splat_blend_c64"]["launches_by_path"] = {"angle": n64}
+    report["splat_blend_c64"]["launches"] = n64
+
+    # card against CPU on the same seeded modules
+    pc = PixelSynth(cfg, device="cpu", seed=0)
+    batch = {"input_img": x, "K": eye, "Kinv": eye, "Pinv_in": eye, "P_out": rcams[1]["P_out"]}
+    warp = depth_warp_forward(pe, batch)
+    warp_cpu = depth_warp_forward(pc, {k: v.cpu() for k, v in batch.items()})
+    same = float((warp["PredImg"].cpu() == warp_cpu["PredImg"]).all(-1).float().mean())
+    derr = _max_err([warp["PredDepth"]], [warp_cpu["PredDepth"]])
+    log(f"[angle] depth_warp_forward W={W}: card against CPU, depth max err {derr:.2e}, "
+        f"pixels equal {same:.5f}, visible {float(warp['VisMask'].float().mean()):.3f}")
+    if not (derr <= 1e-4 and same >= 0.999):
+        raise AssertionError("depth_warp_forward on the card differs from the CPU run")
+    del pe, pc
+    img2 = np.concatenate([_view_inputs(W, s)[0] for s in (5, 6)])
+    RT2 = torch.as_tensor(RTs[1])[None].expand(2, 4, 4)
+    eye2 = torch.eye(4)[None].expand(2, 4, 4)
+    for cls in (ViewAppearanceFlow, Tatarchenko):
+        m = cls()
+        m.reset(torch.Generator().manual_seed(6))
+        m.eval()
+        mc = copy.deepcopy(m).to(DEVICE)
+        args = (torch.as_tensor(img2), eye2, RT2)
+        with torch.no_grad():
+            want = m(*args)
+            got = mc(*(a.to(DEVICE) for a in args))
+            ms = time_ms(lambda: mc(*(a.to(DEVICE) for a in args)), warmup=1, reps=3,
+                         rounds=3)
+        err = _max_err([got], [want])
+        log(f"[angle] {cls.__name__} W={W} batch 2, eval: card against CPU max err "
+            f"{err:.2e} (tolerance 1e-3), output std {float(want.std()):.3f}; {ms:.3f} ms "
+            f"a call on {card_line()}")
+        if not (err <= 1e-3 and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"{cls.__name__} on the card differs from the CPU run")
+    vq = VQVAE()
+    vq.reset(torch.Generator().manual_seed(7))
+    vq.eval()
+    vqc = copy.deepcopy(vq).to(DEVICE)
+    xin = torch.as_tensor(img2)
+    with torch.no_grad():
+        ids = vq.encode(xin)
+        ids_c = vqc.encode(xin.to(DEVICE))
+        dec = vq.decode_code(*ids)
+        dec_c = vqc.decode_code(*(i.to(DEVICE) for i in ids))
+    same = [float((a.cpu() == b).float().mean()) for a, b in zip(ids_c, ids)]
+    err = _max_err([dec_c], [dec])
+    log(f"[angle] VQVAE (two-level) W={W}: ids equal card/CPU {same[0]:.4f} (top "
+        f"{tuple(ids[0].shape)}), {same[1]:.4f} (bottom {tuple(ids[1].shape)}); "
+        f"decode_code max err {err:.2e} of scale {float(dec.abs().max()):.3f}")
+    if not (min(same) >= 0.99 and err <= 1e-4 * max(1.0, float(dec.abs().max()))):
+        raise AssertionError("the two-level VQ-VAE on the card differs from the CPU run")
+    log(f"[angle] K2 C=64: {wide['ms']:.4f} ms a call, device {wide['device_us']:.1f} us, "
+        f"bound {max(wide['t_ops'], wide['t_bytes']):.4f} ms, backward {bwd_ms:.2f} ms; "
+        f"forward_angle {ckpt_ms:.2f} ms a view (stitched.npz, W=128), {enc_ms:.2f} ms a "
+        f"view (encoder, W=256); render_no_outpaint {render_ms:.2f} ms a view; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def _train_cfg(batch=None):
     """The trainer at the Config() widths (W=256, 32x32 codes, nr_filters
     80, nr_resnet 2, ngf/ndf 64, VQ channel 128, losses 1.0_l1 +
@@ -2279,6 +2618,7 @@ def main(argv):
         phase_walk()
         phase_relay(report)
         phase_eval(report)
+        phase_angle(report)
         B = phase_train(report)
         phase_train_kernels(B)
         phase_train_overfit()

@@ -30,10 +30,23 @@ each value selects on the card:
   * `lmconv.compute_dtype`, `feature_norm`, `conv_mask_weight`,
     `dropout_prob` and the model's sizes.
 
+  * `model.use_rgb_features`: True = the image is the point features;
+    False = the `ResNetEncoder` of `refine_model_type` at `ngf` gives 64
+    of them, splatted by K2 at that width into a decoder of that width;
+  * `model.no_outpainting`: `render_no_outpaint` / `forward_angle` pass
+    the decoder no mask channel; `model.predict_residual`,
+    `normalize_before_residual`: the decoder's residual.
+
 Any other value of these fields, and `lmconv.weight_norm=True`, raises
-NotImplementedError naming the field.  `use_pallas` and `masks_backend`
-belong to paths the port does not have (the blend always runs K2, orders
-and masks are built on the host) and are not read.
+NotImplementedError naming the field.  So do the configurations the JAX
+package cannot compute (pipeline.refuse_what_jax_cannot): a "modifier" in
+`depth_predictor_type`, and with an encoder the trainer, the scene view
+step and `predict_residual=True`.  Not read: `model_type` and
+`vqvae.two_level`, which the JAX package reads nowhere either (the
+baselines and the two-level VQ-VAE are built by their own classes,
+models/baselines.py and models/vqvae.py); `use_pallas` and `masks_backend`,
+which belong to paths the port does not have (the blend always runs K2,
+orders and masks are built on the host).
 """
 
 from __future__ import annotations

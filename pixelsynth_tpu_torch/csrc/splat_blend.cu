@@ -17,6 +17,18 @@
 // is no matrix product on this card, so it runs as _blend_tiles' cumsum /
 // cumprod taken sequentially, a thread a pixel.
 //
+// Any feature width C >= 1 (the TPU kernel's C is feats.shape[-1]): the
+// grid's second dimension runs over groups of MAXC = 8 channels, and each
+// group's block is the body below for its 8 channels -- the same slots
+// walked, the same distances and alphas recomputed, only its channels
+// gathered and accumulated (the tail group masked), and group 0 alone
+// writing the coverage.  Per channel the arithmetic is the C <= 8 body's;
+// C <= 8 (every RGB path) runs the instantiation without groups, whose
+// code is the one-group body as it was.  At C = 64
+// the walk runs 8 times over; a tensor-core formulation (a chunk's
+// (pixels x slots) weights in shared memory, then one product with the
+// (slots x C) features) is the open redesign for wide C.
+//
 // Design.  One block a 16x16 tile (TS x TS, TS a multiple of 8 up to 32).
 //   * the gather is inside: the block walks the tile's valid slots in
 //     chunks of CH, and each chunk's points (x, y) and features are
@@ -71,6 +83,7 @@ struct Params {
   int accum;
 };
 
+template <bool GROUPS>
 __global__ void __launch_bounds__(1024)
 blend_kernel(const float* __restrict__ pts,        // (B, N, 3)
              const float* __restrict__ feats,      // (B, N, C)
@@ -86,7 +99,9 @@ blend_kernel(const float* __restrict__ pts,        // (B, N, 3)
   const int bt = blockIdx.x;              // image * nT + tile
   const int b = bt / P.nT;
   const int t = bt - b * P.nT;
-  const int C = P.C;
+  const int C = P.C;                      // the features' row stride
+  const int c0 = GROUPS ? blockIdx.y * MAXC : 0;   // this block's channel group
+  const int Cg = GROUPS ? min(MAXC, C - c0) : C;   // its channels
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int rects = P.TS / RW;            // rectangles across a tile row
@@ -137,14 +152,14 @@ blend_kernel(const float* __restrict__ pts,        // (B, N, 3)
       ly = pb[li * 3 + 1];
 #pragma unroll
       for (int c = 0; c < MAXC; ++c)
-        if (c < C) lf[c] = fb[li * C + c];
+        if (c < Cg) lf[c] = fb[li * C + c0 + c];
     }
   };
   auto stage = [&](int buf) {
     if (loader) {
       sxy[buf][threadIdx.x] = make_float2(lx, ly);
       sf[buf][threadIdx.x][0] = make_float4(lf[0], lf[1], lf[2], lf[3]);
-      if (C > 4) sf[buf][threadIdx.x][1] = make_float4(lf[4], lf[5], lf[6], lf[7]);
+      if (Cg > 4) sf[buf][threadIdx.x][1] = make_float4(lf[4], lf[5], lf[6], lf[7]);
     }
   };
 
@@ -165,7 +180,7 @@ blend_kernel(const float* __restrict__ pts,        // (B, N, 3)
     const float f[MAXC] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w};
 #pragma unroll
     for (int c = 0; c < MAXC; ++c)
-      if (c < C) acc[c] += w * f[c];
+      if (c < Cg) acc[c] += w * f[c];
     trans *= (1.f - alpha);
     asum += alpha;
   };
@@ -219,7 +234,7 @@ blend_kernel(const float* __restrict__ pts,        // (B, N, 3)
           d2[u] = dx * dx + dy * dy;
           al[u] = alpha_of(d2[u]);
           f0[u] = sf[buf][js[u]][0];
-          f1[u] = C > 4 ? sf[buf][js[u]][1] : make_float4(0.f, 0.f, 0.f, 0.f);
+          f1[u] = Cg > 4 ? sf[buf][js[u]][1] : make_float4(0.f, 0.f, 0.f, 0.f);
         }
 #pragma unroll
         for (int u = 0; u < WALK; ++u)
@@ -233,25 +248,28 @@ blend_kernel(const float* __restrict__ pts,        // (B, N, 3)
   const size_t p = ((size_t)b * P.W + row0 + pr) * P.W + col0 + pc;
 #pragma unroll
   for (int c = 0; c < MAXC; ++c)
-    if (c < C) out[p * C + c] = acc[c] * norm;
-  cov[p] = covered ? 1 : 0;
+    if (c < Cg) out[p * C + c0 + c] = acc[c] * norm;
+  if (!GROUPS || blockIdx.y == 0) cov[p] = covered ? 1 : 0;
 }
 
 }  // namespace
 
 // pts (B, N, 3) f32 [col, row, depth]; feats (B, N, C) f32; slot (B, nT, M)
 // int64 point indices of the z-sorted slots; valid (B, nT, M) bool; out
-// (B, W, W, C) f32; cov (B, W, W) bool.  nT = (W / TS)^2.
+// (B, W, W, C) f32; cov (B, W, W) bool.  nT = (W / TS)^2.  One launch of
+// B * nT x ceil(C / 8) blocks.
 extern "C" int splat_blend(const void* pts, const void* feats, const void* slot,
                            const void* valid, void* out, void* cov, int B, int N, int W,
                            int M, int C, int TS, float r2, float dscale, float tau,
                            int pp_pixel, int accum, void* stream) {
-  if (C < 1 || C > MAXC || TS % RW != 0 || TS % RH != 0 || TS > 32 || W % TS != 0)
+  if (C < 1 || TS % RW != 0 || TS % RH != 0 || TS > 32 || W % TS != 0)
     return (int)cudaErrorInvalidValue;
   const int nside = W / TS;
   Params P = {N, nside * nside, nside, M, C, TS, W, r2, r2 * (1.f + 1e-6f), dscale, tau,
               pp_pixel, accum};
-  blend_kernel<<<B * P.nT, TS * TS, 0, (cudaStream_t)stream>>>(
+  const dim3 grid(B * P.nT, (C + MAXC - 1) / MAXC);
+  auto kernel = C <= MAXC ? blend_kernel<false> : blend_kernel<true>;
+  kernel<<<grid, TS * TS, 0, (cudaStream_t)stream>>>(
       (const float*)pts, (const float*)feats, (const long long*)slot,
       (const uint8_t*)valid, (float*)out, (uint8_t*)cov, P);
   return (int)cudaGetLastError();

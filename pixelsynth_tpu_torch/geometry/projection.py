@@ -69,3 +69,23 @@ def lift_to_cloud(depth, K, K_inv, RTinv_cam1, RT_cam2, W: int):
     coors = torch.cat([coors[:, :3], torch.ones_like(coors[:, 3:])], dim=1)
     RT = to44(RT_cam2) @ to44(RTinv_cam1)
     return to44(K) @ (RT @ (to44(K_inv) @ coors))
+
+
+def project_points(depth, K, K_inv, RT_cam1, RTinv_cam1, RT_cam2, RTinv_cam2=None, *,
+                   W: int):
+    """View-1 pixels into view-2 pixel space (projection.py:109-133): depth
+    (B, H, W), (B, 1, H, W) or (B, N) -> (points (B, N, 3) [col, row,
+    depth], valid (B, N), cloud (B, 4, N) to carry).  RT_cam1 and
+    RTinv_cam2 are taken for the reference's signature and not read."""
+    del RT_cam1, RTinv_cam2
+    cloud = lift_to_cloud(depth, K, K_inv, RTinv_cam1, RT_cam2, W)
+    pts, valid = homogeneous_to_pixels(cloud, W)
+    return pts, valid, cloud
+
+
+def reproject_cloud(cloud, K, RT_cam2, RTinv_cam3, W: int):
+    """A carried cloud (B, 4, N), made in the view whose inverse extrinsic
+    is RTinv_cam3, into camera-2 pixel space: h = K @ (RT2 @ RTinv3) @
+    cloud (projection.py:136-150) -> (points, valid)."""
+    RT = to44(RT_cam2) @ to44(RTinv_cam3)
+    return homogeneous_to_pixels(to44(K) @ (RT @ cloud), W)

@@ -332,12 +332,13 @@ class StandingStatsBN(FlaxNamed):
 
 class NoiseBN(FlaxNamed):
     """BigGAN noise-conditioned BN (layers.py:194-236): gain and bias
-    predicted from a (B, 20) normal draw taken from `gen` (or the `noise`
-    given), zero noise when noise_scale == 0 (gain 1, bias 0).  The serving
-    build keeps gain_kernel / bias_kernel already divided by their spectral
-    norms; the trainable build keeps them raw with `u_gain`/`v_gain`,
-    `u_bias`/`v_bias` and runs their power iterations in train mode even
-    at zero noise, as the JAX layer does.  The inner BN has momentum 0.9."""
+    predicted from a (B, 20) normal draw taken from `gen` on its own
+    device (or the `noise` given), zero noise when noise_scale == 0 (gain
+    1, bias 0).  The serving build keeps gain_kernel / bias_kernel already
+    divided by their spectral norms; the trainable build keeps them raw
+    with `u_gain`/`v_gain`, `u_bias`/`v_bias` and runs their power
+    iterations in train mode even at zero noise, as the JAX layer does.
+    The inner BN has momentum 0.9."""
 
     noise_sz = 20
 
@@ -365,8 +366,11 @@ class NoiseBN(FlaxNamed):
         if noise is None:
             if noise_scale == 0.0:
                 return h
+            # drawn where the generator lives (a CPU generator gives a model
+            # on the card the CPU's draws)
+            dev = x.device if gen is None else gen.device
             noise = torch.randn((x.shape[0], self.noise_sz), generator=gen,
-                                device=x.device) * noise_scale
+                                device=dev).to(x.device) * noise_scale
         gain = 1.0 + noise @ wg
         bias = noise @ wb
         return h * gain[:, :, None, None] + bias[:, :, None, None]

@@ -1,4 +1,6 @@
-"""Top-only VQ-VAE-2 (port of pixelsynth_tpu/models/vqvae.py).
+"""VQ-VAE-2 (port of pixelsynth_tpu/models/vqvae.py): `VQVAETop`, the
+top-only model the pipeline serves and stage 1 trains, and `VQVAE`, the
+two-level model (vqvae.py:202-252), which decodes from both levels.
 
 Serving: `VQVAETop.encode` returns the top-level code ids and
 `decode_code` maps ids back to an image.  Training (stage 1): `forward`
@@ -212,3 +214,40 @@ class VQVAETop(FlaxNamed):
         qt = self.quantize_conv_t(self.enc_t(enc_b)).permute(0, 2, 3, 1)
         quant_t = self.quantize_t.embed_code(self.quantize_t(qt))
         return qt, self._qb_input(quant_t, enc_b)
+
+
+class VQVAE(VQVAETop):
+    """The two-level VQ-VAE-2 (vqvae.py:202-252; the reference's
+    vqvae.py:164-238): the top model's encoders, codebooks and top decoder,
+    with the image decoder reading the upsampled top quantization beside
+    the bottom one (2 x embed_dim channels).  `encode` gives both code
+    ids, `encode_full` the JAX `encode`'s five outputs (in train mode both
+    codebooks take their EMA update), `forward` (recon, diff).  NHWC."""
+
+    def __init__(self, in_channel=3, channel=128, n_res_block=2,
+                 n_res_channel=32, embed_dim=64, n_embed=512, decay=0.99,
+                 eps=1e-5):
+        super().__init__(in_channel, channel, n_res_block, n_res_channel,
+                         embed_dim, n_embed, decay, eps)
+        self.dec = Decoder(2 * embed_dim, in_channel, channel, n_res_block,
+                           n_res_channel, stride=4)
+
+    def encode(self, x):
+        """(B, H, W, 3) -> (id_t (B, H/8, W/8), id_b (B, H/4, W/4)) int64."""
+        _, _, _, id_t, id_b = self.encode_full(x)
+        return id_t, id_b
+
+    def forward(self, x):
+        quant_t, quant_b, diff, _, _ = self.encode_full(x)
+        return self.decode(quant_t, quant_b), diff
+
+    def decode(self, quant_t, quant_b):
+        """(B, h, w, embed_dim), (B, 2h, 2w, embed_dim) -> (B, 8h, 8w, 3)."""
+        up_t = self.upsample_t(quant_t.permute(0, 3, 1, 2))
+        return self.dec(torch.cat([up_t, quant_b.permute(0, 3, 1, 2)], 1)
+                        ).permute(0, 2, 3, 1)
+
+    def decode_code(self, code_t, code_b):
+        """(B, h, w), (B, 2h, 2w) ids -> (B, 8h, 8w, 3)."""
+        return self.decode(self.quantize_t.embed_code(code_t),
+                           self.quantize_b.embed_code(code_b))

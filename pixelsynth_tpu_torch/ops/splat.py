@@ -469,9 +469,10 @@ class _SplatBlendFn(torch.autograd.Function):
 
 def blend_slots_kernel(points, feats, slot_idx, slot_valid, W: int, cfg: SplatConfig):
     """One launch of the CUDA kernel (csrc/splat_blend.cu), which gathers
-    the slots' points itself: points and feats f32, C <= 8; slot_idx
-    int64; tile_size a multiple of 8 up to 32.  Takes no gradient: under
-    one, `blend_slots` runs it inside `_SplatBlendFn`."""
+    the slots' points itself: points and feats f32, any C >= 1 (the grid
+    runs ceil(C / 8) channel groups, each walking the tile's slots);
+    slot_idx int64; tile_size a multiple of 8 up to 32.  Takes no
+    gradient: under one, `blend_slots` runs it inside `_SplatBlendFn`."""
     if torch.is_grad_enabled() and (points.requires_grad or feats.requires_grad):
         raise ValueError("blend_slots_kernel has no gradient: use blend_slots")
     B, N, _ = points.shape
@@ -480,9 +481,9 @@ def blend_slots_kernel(points, feats, slot_idx, slot_valid, W: int, cfg: SplatCo
     nT = (W // TS) ** 2
     M = slot_idx.shape[-1]
     dev = points.device
-    if (C > 8 or TS % 8 or TS > 32 or W % TS
+    if (C < 1 or TS % 8 or TS > 32 or W % TS
             or cfg.accumulation not in _ACCUM):
-        raise ValueError(f"K2 takes C <= 8, a tile size that is a multiple of 8 "
+        raise ValueError(f"K2 takes C >= 1, a tile size that is a multiple of 8 "
                          f"up to 32 and dividing W, one of {list(_ACCUM)}; got "
                          f"C={C}, tile_size={TS}, W={W}, {cfg.accumulation!r}")
     points = points.float().contiguous()

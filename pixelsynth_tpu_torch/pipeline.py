@@ -13,6 +13,15 @@ Cumulative scenes carry a fixed-capacity, validity-masked point cloud
 (`CloudState`); appends compact it with a stable sort.  Entry points run
 on `cuda` unless the caller passes device="cpu".
 
+Point features are the image itself (`use_rgb_features`, the default) or
+the 64 channels of the `ResNetEncoder`, which the splat (K2 at any
+feature width) carries into a refinement decoder built at that width.
+`forward_angle` renders a list of output extrinsics from one image without
+outpainting.  With an encoder the port computes what the JAX package can:
+the composition features -> splat_view -> decode_image
+(`render_no_outpaint`, `forward_angle`); it refuses what the JAX package
+cannot compute (`refuse_what_jax_cannot`).
+
 `PixelSynth(cfg, trainable=True)` builds the stage-2 trainer's networks
 instead of the view step's: the depth U-Net, the refinement decoder, the
 PixelCNN (on `lmconv.train_backend`) and the discriminator with trainable
@@ -37,7 +46,9 @@ from pixelsynth_tpu_torch.geometry.projection import (
 )
 from pixelsynth_tpu_torch.models.classifier import ResNet18
 from pixelsynth_tpu_torch.models.discriminators import MultiscaleDiscriminator
-from pixelsynth_tpu_torch.models.encoderdecoder import ResNetDecoder
+from pixelsynth_tpu_torch.models.encoderdecoder import (
+    FEATURE_DIM, ResNetDecoder, ResNetEncoder,
+)
 from pixelsynth_tpu_torch.models.layers import collections
 from pixelsynth_tpu_torch.models.lmconv import LMPixelCNN, flax_named_params
 from pixelsynth_tpu_torch.models.losses import VGG19Features, synthesis_loss
@@ -109,15 +120,55 @@ def binarize_trunc(mask_ds: torch.Tensor) -> torch.Tensor:
     return (mask_ds >= 1.0 - 1e-6).float()
 
 
+def refuse_what_jax_cannot(cfg: Config, *, trainable: bool = False,
+                           scene: bool = False) -> None:
+    """Raise NotImplementedError, naming the field and the JAX package's
+    line, for the configurations the JAX package cannot compute: the
+    modifier U-Net (built, never initialised, feeding only the 64-channel
+    combine), and with an encoder the trainer, the scene view step and the
+    residual over 64-wide features."""
+    mc = cfg.model
+    if "modifier" in mc.depth_predictor_type:
+        raise NotImplementedError(
+            f"model.depth_predictor_type={mc.depth_predictor_type!r}: the modifier "
+            "U-Net has no tree in the JAX package's init_variables "
+            "(pixelsynth_tpu/pipeline.py:263-281) and feeds only train_forward's "
+            "combine of 64 channels with a 3-channel decode (:525-532 -> :557)")
+    if mc.use_rgb_features:
+        return
+    if trainable:
+        raise NotImplementedError(
+            "model.use_rgb_features=False with trainable=True: train_forward "
+            "combines the encoder's 64-wide splat with the 3-channel VQ decode "
+            "(pixelsynth_tpu/pipeline.py:557, combine at :478-481), which the JAX "
+            "package cannot compute")
+    if scene:
+        raise NotImplementedError(
+            "model.use_rgb_features=False in SceneGenerator: the JAX view step "
+            "runs the encoder without rngs and combines its 64-wide splat with "
+            "the 3-channel VQ decode (pixelsynth_tpu/scene.py:153,185,219)")
+    if mc.predict_residual:
+        raise NotImplementedError(
+            "model.predict_residual=True with model.use_rgb_features=False: the "
+            "decoder's residual adds the 64-wide features to its 3 channels "
+            "(pixelsynth_tpu/models/encoderdecoder.py:107-110)")
+
+
 def build_modules(cfg: Config, classifier_vars=None, *,
-                  trainable: bool = False) -> Dict[str, torch.nn.Module]:
+                  trainable: bool = False,
+                  projector_in: Optional[int] = None) -> Dict[str, torch.nn.Module]:
     """The view step's networks, on the CPU, unloaded; with `trainable` the
     stage-2 trainer's instead (models/layers.py: raw weights with their
     spectral vectors; the frozen VQ-VAE and a VGG19 in place of the
-    classifier)."""
+    classifier).  With `use_rgb_features=False` also the "encoder".  The
+    refinement decoder reads `projector_in` channels: by default the
+    features' width plus the mask channel, which is what the JAX package's
+    init builds (pipeline.py:263-270) at the features' width; loaded
+    weights give their own (weights.from_jax_params)."""
     mc = cfg.model
-    if not mc.use_rgb_features or "modifier" in mc.depth_predictor_type:
-        raise NotImplementedError("the port serves RGB point features only")
+    refuse_what_jax_cannot(cfg, trainable=trainable)
+    if projector_in is None:
+        projector_in = (3 if mc.use_rgb_features else FEATURE_DIM) + 1
     spectral = "spectral" in mc.norm_G
     levels = int(round(np.log2(mc.W)))
     if 2 ** levels != mc.W:
@@ -132,12 +183,15 @@ def build_modules(cfg: Config, classifier_vars=None, *,
         "projector": ResNetDecoder(mc.refine_model_type, mc.ngf, spectral,
                                    mc.predict_residual,
                                    mc.normalize_before_residual,
+                                   in_channels=projector_in,
                                    trainable=trainable),
         "vqvae": build_vqvae(cfg),
         "disc": MultiscaleDiscriminator(mc.ndf, trainable=trainable),
     }
     mods.update({"vgg": VGG19Features()} if trainable else
                 {"classifier": ResNet18(n_cls)})
+    if not mc.use_rgb_features:
+        mods["encoder"] = ResNetEncoder(mc.refine_model_type, mc.ngf, spectral)
     return mods
 
 
@@ -266,7 +320,10 @@ class PixelSynth:
         self.W = cfg.model.W
         self.trainable = trainable
         state_dicts = state_dicts or {}
-        mods = build_modules(cfg, trainable=trainable)
+        proj_in = None
+        if "projector" in state_dicts:
+            proj_in = state_dicts["projector"]["ResNetBlock_0.SNConv_0.weight"].shape[1]
+        mods = build_modules(cfg, trainable=trainable, projector_in=proj_in)
         if not trainable:
             if "classifier" in state_dicts:
                 n_cls = state_dicts["classifier"]["Dense_0.weight"].shape[0]
@@ -280,7 +337,7 @@ class PixelSynth:
         # per-layer kernel engine (models/lmconv_fast.py)
         mods["pixelcnn"] = build_pixelcnn(cfg, trainable=trainable)
         self.trees = list(mods)
-        self.classifier = None
+        self.classifier = self.encoder = None
         for name, m in mods.items():
             setattr(self, name, m)
         self.init_variables(torch.Generator().manual_seed(seed), state_dicts)
@@ -298,8 +355,9 @@ class PixelSynth:
     def init_variables(self, gen: torch.Generator,
                        state_dicts: Optional[Dict[str, Dict]] = None) -> None:
         """Every tree (unet, projector, vqvae, disc, then the classifier or
-        the VGG19, then the PixelCNN) from its state dict where one is
-        given, else initialized from `gen`, in that order."""
+        the VGG19, then the encoder where there is one, then the PixelCNN)
+        from its state dict where one is given, else initialized from
+        `gen`, in that order."""
         state_dicts = state_dicts or {}
         for name in self.trees:
             m = getattr(self, name)
@@ -336,11 +394,15 @@ class PixelSynth:
             depth = torch.sigmoid(raw) * (mc.max_z - mc.min_z) + mc.min_z
         return (depth, collections(self.unet)) if train else depth
 
-    def features(self, img: torch.Tensor) -> torch.Tensor:
-        """The point features: the image itself (the port serves RGB point
-        features only; `build_modules` refuses an encoder, so no collection
-        is updated in train mode either)."""
-        return img
+    def features(self, img: torch.Tensor, *, noise_scale: float = 1.0,
+                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The point features (pipeline.py:294-303): the image itself, or
+        the encoder's (B, W, W, 64) with its NoiseBN draws from `gen`
+        (eval mode: the encoder has no trainer here, see
+        `refuse_what_jax_cannot`)."""
+        if self.encoder is None:
+            return img
+        return self.encoder(img, noise_scale=noise_scale, gen=gen)
 
     def splat_view(self, fs, depth, cams):
         """Project view-1 features into the output camera and splat.
@@ -354,20 +416,54 @@ class PixelSynth:
                            cfg=self.cfg.model.splat)
         return gen_fs, bg, cloud.transpose(1, 2)
 
+    def _mask_arg(self, bg):
+        """The mask the no-outpainting renders pass the decoder: none when
+        the config has `no_outpainting` (pipeline.py:605,626)."""
+        return None if self.cfg.model.no_outpainting else bg
+
     @torch.no_grad()
     def render_no_outpaint(self, img, cams, *, noise_scale: float = 1.0,
                            gen: Optional[torch.Generator] = None):
-        """The no-outpainting path (z_buffermodel.py:382-383): depth ->
-        lift -> splat -> the refinement decoder, whose noise draws come
-        from `gen`.  The decoder is built with the foreground-channel
-        input, so the mask is passed unless the config has
-        `no_outpainting`."""
+        """The no-outpainting path (pipeline.py:616-631, z_buffermodel.py
+        :382-383): depth -> features -> lift -> splat -> the refinement
+        decoder; the encoder's and the decoder's noise draws come from
+        `gen`, in that order."""
         depth = self.regress_depth(img)
-        fs = self.features(img)
+        fs = self.features(img, noise_scale=noise_scale, gen=gen)
         gen_fs, bg, _ = self.splat_view(fs, depth, cams)
-        gen_img = self.decode_image(gen_fs, bg, noise_scale=noise_scale, gen=gen)
+        gen_img = self.decode_image(gen_fs, self._mask_arg(bg),
+                                    noise_scale=noise_scale, gen=gen)
         return {"PredImg": gen_img, "PredDepth": depth, "Background": bg,
                 "FeaturesImg": gen_fs}
+
+    @torch.no_grad()
+    def forward_angle(self, img, K, Kinv, RTs, *, gen: Optional[torch.Generator] = None,
+                      return_depth: bool = False):
+        """Render each output extrinsic of `RTs` from one image without
+        outpainting (pipeline.py:591-614, z_buffermodel.py:710-754): one
+        depth pass and one feature pass, then per view `splat_view` (one K2
+        launch) and the decoder.  The decoder's noise stream restarts at
+        every view, as the JAX package hands every view the same key: each
+        view's draws start from `gen`'s state after the feature pass.
+        img (B, W, W, 3); K, Kinv (B, 4, 4); RTs a list of (4, 4) or (B, 4,
+        4) world-from-output extrinsics.  -> list of (B, W, W, 3)
+        [, depth (B, W, W)]."""
+        if gen is None:
+            gen = torch.Generator(device=self.device).manual_seed(0)
+        B = img.shape[0]
+        eye = torch.eye(4, device=img.device).expand(B, 4, 4)
+        depth = self.regress_depth(img)
+        fs = self.features(img, gen=gen)
+        start = gen.get_state()
+        outs = []
+        for RT in RTs:
+            RT = RT if torch.is_tensor(RT) else torch.as_tensor(np.asarray(RT, np.float32))
+            RT = RT.to(img.device, torch.float32).expand(B, 4, 4)
+            cams = {"K": K, "Kinv": Kinv, "P_in": eye, "Pinv_in": eye, "P_out": RT}
+            gen_fs, bg, _ = self.splat_view(fs, depth, cams)
+            gen.set_state(start)
+            outs.append(self.decode_image(gen_fs, self._mask_arg(bg), gen=gen))
+        return (outs, depth) if return_depth else outs
 
     def splat_cumulative(self, fs, depth, cams, state: CloudState,
                          last_bg: Optional[torch.Tensor], RTinv_last):
@@ -418,11 +514,12 @@ class PixelSynth:
 
     def decode_image(self, combined, bg_mask, *, noise_scale: float = 1.0,
                      gen: Optional[torch.Generator] = None, train: bool = False):
-        """The refinement decoder; its noise draws come from `gen`.  With
-        train=True, (image, the decoder's collection updates)."""
-        mask_arg = None if self.cfg.model.no_outpainting else bg_mask
+        """The refinement decoder on `combined` and the mask given (None:
+        no mask channel), as pipeline.py:470-476 passes it; its noise draws
+        come from `gen`.  With train=True, (image, the decoder's collection
+        updates)."""
         self.projector.train(train)
-        out = self.projector(combined, mask_arg, noise_scale=noise_scale, gen=gen)
+        out = self.projector(combined, bg_mask, noise_scale=noise_scale, gen=gen)
         return (out, collections(self.projector)) if train else out
 
     def pixelcnn_logits(self, onehot, masks, *, train: bool = False,

@@ -21,7 +21,7 @@ from pixelsynth_tpu_torch.geometry.paths import get_rt_from_rot, num_split_for_d
 from pixelsynth_tpu_torch.models.classifier import (
     classifier_entropy, preprocess_for_classifier,
 )
-from pixelsynth_tpu_torch.pipeline import CloudState, PixelSynth
+from pixelsynth_tpu_torch.pipeline import CloudState, PixelSynth, refuse_what_jax_cannot
 from pixelsynth_tpu_torch.sampling import (
     ar_sample, ar_sample_speculative, d_fake_score, rank_candidates,
 )
@@ -85,6 +85,7 @@ class SceneGenerator:
                  cloud_capacity: int = 4 * 65536,
                  noise_mode: Optional[str] = None, carry: Optional[str] = None,
                  anchor_input: Optional[bool] = None):
+        refuse_what_jax_cannot(ps.cfg, scene=True)
         sc = ps.cfg.sample
         self.ps = ps
         self.device = ps.device

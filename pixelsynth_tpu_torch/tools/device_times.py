@@ -145,8 +145,9 @@ def main(argv=None):
             ref = np.load(args.k2_compare)
             for k, v in got.items():
                 same = np.array_equal(v.view(np.uint8), ref[k].view(np.uint8))
+                diff = float(np.abs(v.astype(np.float64) - ref[k].astype(np.float64)).max())
                 print(f"[K2] {k}: bit-identical to {os.path.basename(args.k2_compare)} "
-                      f"{same}", flush=True)
+                      f"{same}, largest difference {diff}", flush=True)
 
     if "k3" in only:
         k3 = []

@@ -21,6 +21,12 @@ step uses onto the port's modules and returns their state dicts:
     `u`/`v` (`u_gain`/`v_gain`/`u_bias`/`v_bias` for NoiseBN), every
     `batch_stats` entry -- for unet, projector, vqvae, pixelcnn, disc and
     vgg, so that one step of the port computes what one JAX step computes;
+  * the feature encoder's tree ("encoder", where use_rgb_features is
+    False) and a refinement decoder of any input width, read from the
+    tree's first kernel (3 or 64 features, plus 1 with the mask);
+  * `from_jax_module` loads one Flax module's variables into a port module
+    of the same names: the two-level VQ-VAE (models/vqvae.py `VQVAE`),
+    the baselines (models/baselines.py) and any tree above;
   * the PixelCNN tree loads into the `LMPixelCNN` module by name
     (`LMConv_i/{weight,bias,mask_weight}`, `GatedResnet_i/LMConv_{0,1}`,
     `GatedResnet_i/Nin_0/Dense_0`, `Nin_0/Dense_0`); lmconv taps keep their
@@ -102,22 +108,32 @@ def from_jax_params(variables: Dict, cfg: Config, *,
                     trainable: bool = False) -> Dict[str, Dict]:
     """Flax variable trees -> {tree name: torch state dict} for every tree
     the view step uses (unet, projector, vqvae, disc, classifier,
-    pixelcnn), or with `trainable` every tree of the stage-2 trainer
-    (unet, projector, vqvae, disc, vgg, pixelcnn)."""
-    import torch
-
+    pixelcnn, and the encoder where use_rgb_features is False), or with
+    `trainable` every tree of the stage-2 trainer (unet, projector, vqvae,
+    disc, vgg, pixelcnn).  The projector is built at the input width of
+    its tree's first kernel."""
     from pixelsynth_tpu_torch.pipeline import build_modules, build_pixelcnn
 
+    proj_in = None
+    if "projector" in variables:
+        first = variables["projector"]["params"]["ResNetBlock_0"]["SNConv_0"]["kernel"]
+        proj_in = int(np.shape(first)[2])
     modules = build_modules(cfg, classifier_vars=variables.get("classifier"),
-                            trainable=trainable)
+                            trainable=trainable, projector_in=proj_in)
     modules["pixelcnn"] = build_pixelcnn(cfg, trainable=trainable)
-    out: Dict[str, Dict] = {}
+    return {name: from_jax_module(module, variables[name])
+            for name, module in modules.items() if name in variables}
+
+
+def from_jax_module(module, variables: Dict) -> Dict:
+    """One Flax module's variables ({"params": ..., "batch_stats": ...,
+    ...}) loaded into `module`, a port module whose children carry the Flax
+    names -> its state dict."""
+    import torch
+
     with torch.no_grad():
-        for name, module in modules.items():
-            if name in variables:
-                module.load_flax(merge_collections(variables[name]))
-                out[name] = module.state_dict()
-    return out
+        module.load_flax(merge_collections(variables))
+    return module.state_dict()
 
 
 def eval_net_state_dict(net: str, variables: Dict) -> Dict:

@@ -66,6 +66,11 @@ EVAL_MODULES = [
     "pixelsynth_tpu_torch.eval.consistency_fixtures", "pixelsynth_tpu_torch.utils.video",
     "pixelsynth_tpu_torch.demo", "pixelsynth_tpu_torch.weights",
     "pixelsynth_tpu_torch.models.classifier", "pixelsynth_tpu_torch.models.losses",
+    # the angle / encoder / baselines slice
+    "pixelsynth_tpu_torch.geometry.cameras", "pixelsynth_tpu_torch.geometry.projection",
+    "pixelsynth_tpu_torch.utils.camera_paths", "pixelsynth_tpu_torch.models.encoderdecoder",
+    "pixelsynth_tpu_torch.models.vqvae", "pixelsynth_tpu_torch.models.baselines",
+    "pixelsynth_tpu_torch.models.depth_model", "pixelsynth_tpu_torch.models.dmol",
 ]
 
 
@@ -95,3 +100,21 @@ def test_eval_networks_default_to_the_card(make):
         pytest.skip("a CUDA device is present")
     with pytest.raises((RuntimeError, AssertionError)):
         {"percsim": PercSim, "lpips": LPIPS, "fid": make_fid_feature_fn}[make]()
+
+
+def test_encoder_pipeline_defaults_to_the_card():
+    """With an encoder too (the build forward_angle and render_no_outpaint
+    run on), the pipeline defaults to the card: without one it fails
+    instead of falling back to the CPU."""
+    from pixelsynth_tpu_torch.config import Config
+    from pixelsynth_tpu_torch.pipeline import PixelSynth
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = Config()
+    cfg.model.W, cfg.model.unet_num_filters, cfg.model.ngf, cfg.model.ndf = 32, 4, 8, 8
+    cfg.model.vqvae.channel, cfg.model.vqvae.n_res_channel = 16, 8
+    cfg.model.lmconv.nr_filters = 16
+    cfg.model.use_rgb_features, cfg.model.predict_residual = False, False
+    with pytest.raises((RuntimeError, AssertionError)):
+        PixelSynth(cfg)

@@ -94,6 +94,18 @@ def test_k2_matches_plain_on_card():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("C", [9, 16, 64])
+def test_k2_wide_features_match_plain_on_card(C):
+    """K2 at C > 8 channels (one launch of ceil(C / 8) channel groups) on a
+    view's own points and on points at the radius, against its plain
+    version to 1e-5 of the output's scale; one launch a call."""
+    _need_card()
+    import chip_smoke
+
+    chip_smoke.k2_wide_check(C)
+
+
+@pytest.mark.gpu
 def test_k3_matches_plain_on_card():
     """K3, bf16 (resident route: three mask cases, 20 calls bit-identical,
     one device kernel a call, the other cluster size's build) and float32
