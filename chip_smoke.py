@@ -30,11 +30,20 @@ prints the final ok line):
      extremes, descending keys), exact against torch.sort(stable=True),
      which is also its library yardstick, and against both plain versions).
      A one-kernel-a-call check counts exactly N launches by the wrapper
-     and at most N under one name by the profiler;
+     and at most N under one name by the profiler; the order kernel
+     (csrc/custom_order.cu, `phase_orders`) bit for bit against its plain
+     version and the host heap on the default view's 32x32 distance grid,
+     the relay checkpoint's 16x16 grids and random grids with ties (B = 1
+     and 64), one launch a call, timed beside both;
   3. the default path at full width: one `generate_view` at the Config()
      defaults (W=256, 32x32 codes, nr_filters 80, speculative 12) with
-     seeded random weights and 16 candidates (K1, K2); then the same view
-     with lmconv.compute_dtype="float32" (K1's "k3" route: K3, K2);
+     seeded random weights and 16 candidates (K1, K2, the order kernel),
+     then the same view in 12 alternating pairs of `lmconv.masks_backend`
+     ("jax": the order kernel; "host": the heap), the `orders_masks`
+     stage's ms and the view's of each, their orders, masks and sampled
+     codes equal;
+     then the same view with lmconv.compute_dtype="float32" (K1's "k3"
+     route: K3, K2);
   4. the per-layer engines: the AR fill (`ar_sample` over every background
      cell, pop 16) through the module path (32 K3 launches a forward) and
      through the per-layer kernel engine (14 K4 + 4 K3), each held to the
@@ -71,7 +80,15 @@ prints the final ok line):
      batch 12) on K3: 6 steps, 33 K3 launches each, one step held to the
      plain versions, then the inpainting preview through K1; and the
      evidence curves of stages 1 and 3 (W=128), held to the bars of
-     tests/test_training_evidence.py beside the JAX package's curves.
+     tests/test_training_evidence.py beside the JAX package's curves;
+ 10. the relay chain (tools/run_relay.py) with --smoke settings at W=128
+     and the Config() widths into build/relay_chain/: all ten stages
+     (shards, VQ-VAE, codes, DPR pretrain, orders through the order
+     kernel, PixelCNN, DPR, classifier, stitch, report), each stage's
+     seconds and kernel launches; the stitched npz loaded by
+     weights.load_stitched_npz renders a finite view in [-1, 1], the
+     report has every key of evidence/relay/relay_report.json, and
+     evidence/relay/stitched.npz is unchanged (sha256).
 Each path's launch counts (and the wrappers' counts of plain-version
 calls) are zeroed just before it is driven and read just after.  The
 script ends with a `kernels` JSON line, the card's name
@@ -94,7 +111,8 @@ PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor cores
 PEAK_F32_FLOPS = 67e12     # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 DEVICE = "cuda"
-SOURCES = ["lmconv_fused", "splat_blend", "masked_conv", "gated_resnet", "sort_kv"]
+SOURCES = ["lmconv_fused", "splat_blend", "masked_conv", "gated_resnet", "sort_kv",
+           "custom_order"]
 
 
 def log(*a):
@@ -1163,6 +1181,119 @@ def phase_k5(report, W=256):
             f"(12 B x {B * E} elements / 3.35 TB/s)")
 
 
+def _background_distances(ps, img, cams):
+    """The signed distance grid of a view's splat background, as
+    masks_for_background builds it."""
+    import torch
+    from pixelsynth_tpu_torch.ops.distance_transform import signed_distance_field
+    from pixelsynth_tpu_torch.pipeline import binarize_trunc, downsample_mask
+
+    with torch.no_grad():
+        depth = ps.regress_depth(img)
+        _, bg, _ = ps.splat_view(ps.features(img), depth, cams)
+    return signed_distance_field(binarize_trunc(downsample_mask(~bg)),
+                                 binarize_trunc(downsample_mask(bg)))
+
+
+def _order_grids():
+    """The order kernel's test grids -> {tag: (B, H, W) int32 on the card}:
+    the default view's own distance grid (Config(), seed 0, the input and
+    camera of `_run_view`: 32x32), the relay checkpoint's on four held-out
+    pairs (16x16), and seeded random grids with many equal distances at
+    B = 1 and B = 64, and at 48x48 (72 keys a lane: a rescan of three
+    loads a lane)."""
+    import numpy as np
+    import torch
+    from pixelsynth_tpu_torch.config import Config
+    from pixelsynth_tpu_torch.data.panorama import pair_items, val_pairs
+    from pixelsynth_tpu_torch.geometry.paths import get_rt_from_rot
+    from pixelsynth_tpu_torch.pipeline import PixelSynth
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=DEVICE)
+
+    ps = PixelSynth(Config(), device=DEVICE, seed=0)
+    img, cams = _view_inputs(ps.W)
+    _, RT = get_rt_from_rot("R", cams["P"], scene_mode=False, rotation=0.3)
+    view = _background_distances(ps, dev(img), {
+        "K": dev(cams["K"]), "Kinv": dev(cams["Kinv"]), "Pinv_in": dev(cams["Pinv"]),
+        "P_out": dev(RT)})
+    ps = PixelSynth.from_stitched(os.path.join(REPO, "evidence/relay/stitched.npz"),
+                                  device=DEVICE)
+    items = pair_items(val_pairs(ps.W, 4))
+    b = {k: dev(np.stack([it[k] for it in items])) for k in items[0]}
+    relay = _background_distances(ps, b["input_img"], b)
+    rng = np.random.default_rng(3)
+    grids = {"default view 1x32x32": view, "relay checkpoint 4x16x16": relay}
+    for B, side in ((1, 32), (64, 32), (2, 48)):
+        grids[f"random ties {B}x{side}x{side}"] = torch.as_tensor(
+            rng.integers(-3, 4, (B, side, side)).astype(np.int32), device=DEVICE)
+    return {k: v.to(torch.int32).contiguous() for k, v in grids.items()}
+
+
+def phase_orders(report):
+    """The order kernel (csrc/custom_order.cu) against its plain version
+    (custom_orders_jax's loop in torch ops, on the card) and against the
+    host heap (ops/orders.py: native/custom_order.cpp where g++ builds it,
+    else heapq), bit for bit, one launch a call, on `_order_grids`; timed
+    on the default view's grid (B = 1, what a view builds) and at B = 64,
+    beside the plain version and the host path (copy to the host, heap,
+    copy back) as the yardstick."""
+    import numpy as np
+    import torch
+    from pixelsynth_tpu_torch.ops import orders as O
+    from pixelsynth_tpu_torch.ops import orders_device as D
+
+    grids = _order_grids()
+    for tag, dist in grids.items():
+        before = D.LAUNCHES["custom_order"]
+        got = D.custom_order_device(dist)
+        torch.cuda.synchronize()
+        n = D.LAUNCHES["custom_order"] - before
+        plain = D.custom_order_plain(dist)
+        heap = O.custom_order_flat(dist.cpu().numpy())
+        same_plain = bool(torch.equal(got, plain))
+        same_heap = bool(np.array_equal(got.cpu().numpy(), heap))
+        log(f"[orders] {tag}: {n} launch, equal to the plain version {same_plain}, "
+            f"to the host heap ({O.HOST_ORDER_PATH}) {same_heap}")
+        if n != 1 or not (same_plain and same_heap):
+            raise AssertionError(f"the order kernel failed on {tag}")
+
+    rows = {}
+
+    def host(d):
+        return torch.as_tensor(O.custom_order_flat(d.cpu().numpy()), device=DEVICE)
+
+    for tag, d in (("1x32x32", grids["default view 1x32x32"]),
+                   ("64x32x32", grids["random ties 64x32x32"])):
+        ms = time_ms(lambda: D.custom_order_device(d))
+        pms = time_ms(lambda: D.custom_order_plain(d), warmup=1, reps=1, rounds=3)
+        hms = time_ms(lambda: host(d), warmup=1, reps=3, rounds=3)
+        B, H, W = d.shape
+        HW = H * W
+        # bytes: the distances read once, the order written once (4 B each)
+        t_bytes = 8.0 * B * HW / PEAK_BYTES * 1e3
+        # operations: a heap's comparisons, HW log2 HW an image, at the
+        # card's 32-bit rate outside the tensor cores
+        t_ops = B * HW * np.log2(HW) / PEAK_F32_FLOPS * 1e3
+        # a model, not a measurement: HW - 1 dependent steps of an assumed
+        # 60 cycles (a shared-memory load and two warp reductions) at an
+        # assumed 1.98 GHz; logged only, never in the kernels line
+        step_model = (HW - 1) * 60 / 1.98e9 * 1e3
+        rows[tag] = (ms, pms, hms, t_bytes, t_ops)
+        log(f"[orders] custom_order {tag}: {ms:.4f} ms kernel, {pms:.2f} ms plain, "
+            f"{hms:.3f} ms host heap ({O.HOST_ORDER_PATH}: copy, heap, copy back), "
+            f"bound {max(t_bytes, t_ops) * 1e3:.3f} us ({'bytes' if t_bytes >= t_ops else 'operations'}); "
+            f"step model (assumed 60 cycles x {HW - 1} steps at 1.98 GHz) {step_model:.4f} ms")
+    ms, pms, hms, t_bytes, t_ops = rows["1x32x32"]
+    report["custom_order"] = _entry(
+        "custom_order", "custom_order.cu",
+        "pixelsynth_tpu/ops/orders_jax.py:33 custom_order_jax (XLA, not Pallas)",
+        0.0, ms, pms, t_ops, t_bytes)
+    report["custom_order"].update(heap_ms=hms, ms_b64=rows["64x32x32"][0],
+                                  heap_ms_b64=rows["64x32x32"][2])
+
+
 def _view_inputs(W, seed=0):
     """A structured input image from a seed (smooth colour gradients plus
     noise, in [-1, 1]) and the demo cameras."""
@@ -1180,10 +1311,11 @@ def _counters(attr="LAUNCHES"):
     """The wrappers' counts of launches (`LAUNCHES`) or of calls that took
     the plain version (`PLAIN_CALLS`)."""
     from pixelsynth_tpu_torch.ops import (
-        gated_resnet_kernel, lmconv_fused, masked_conv_kernel, sort_kernel, splat)
+        gated_resnet_kernel, lmconv_fused, masked_conv_kernel, orders_device,
+        sort_kernel, splat)
 
     return [getattr(m, attr) for m in (lmconv_fused, splat, masked_conv_kernel,
-                                       gated_resnet_kernel, sort_kernel)]
+                                       gated_resnet_kernel, sort_kernel, orders_device)]
 
 
 def zero_launches():
@@ -1220,10 +1352,12 @@ def record_launches(report, launches, names, path):
             raise AssertionError(f"kernel {name} was not launched on {path}")
 
 
-def _run_view(tag, cfg):
+def _run_view(tag, cfg, masks_backends=False):
     """One timed `generate_view` (second call) at `cfg`, pop 16, every
     stage of the view step with re-ranking by classifier entropy.  Launch
-    counts are zeroed just before it and read just after."""
+    counts are zeroed just before it and read just after.  With
+    masks_backends, the same view afterwards through both
+    `lmconv.masks_backend` values (`check_masks_backends`)."""
     import torch
     from pixelsynth_tpu_torch.geometry.paths import get_rt_from_rot
     from pixelsynth_tpu_torch.pipeline import CloudState, PixelSynth
@@ -1251,6 +1385,8 @@ def _run_view(tag, cfg):
     wall = time.perf_counter() - t0
     launches = read_launches()
     stages = gen.timer.times_ms()
+    if masks_backends:
+        check_masks_backends(_views_by_masks_backend(ps, gen, run))
     l = cfg.model.lmconv
     n_bg = int((out["bg_ds"] >= 1 - 1e-6).sum())
     log(f"[{tag}] W={W} codes {l.obs[1]}x{l.obs[2]} F={l.nr_filters} "
@@ -1282,14 +1418,14 @@ def phase_view(report, cfg=None):
     from pixelsynth_tpu_torch.ops import splat
 
     cfg = cfg or Config()
-    out, launches, n_bg, pts, valid = _run_view("view", cfg)
+    out, launches, n_bg, pts, valid = _run_view("view", cfg, masks_backends=True)
     st = out["ar_stats"]
     if st["n_forwards"] == 0:
         raise AssertionError("the view had nothing to outpaint")
     log(f"[view] AR forwards {st['n_forwards']}, cells committed per forward "
         f"{n_bg / max(1, st['n_forwards']):.2f}")
-    record_launches(report, launches, ("lmconv_up", "lmconv_down", "splat_blend"),
-                    "the default view")
+    record_launches(report, launches, ("lmconv_up", "lmconv_down", "splat_blend",
+                                       "custom_order"), "the default view")
     # what the (tile, tap) skip saves on this view's own order
     from pixelsynth_tpu_torch.ops.conv_pack import skipped_share
     from pixelsynth_tpu_torch.ops.lmconv_fused import fold_boundary_masks, tile_tables
@@ -1573,8 +1709,8 @@ def phase_relay(report, n_pairs=48, batch=8, consistency_items=16, num_samples=N
         f" s, demo walk {got['scene_walk_seconds']:.1f} s); launches "
         f"{json.dumps({k: v for k, v in launches.items() if v})}")
     check_no_plain("the relay gate")
-    record_launches(report, launches, ("lmconv_up", "lmconv_down", "splat_blend"),
-                    "the relay gate")
+    record_launches(report, launches, ("lmconv_up", "lmconv_down", "splat_blend",
+                                       "custom_order"), "the relay gate")
     for k, v in got.items():
         if isinstance(v, (int, float)) and not k.endswith(("seconds", "time")):
             log(f"[relay] {k}: port {v!r}, JAX report {jax_report.get(k)!r}")
@@ -1603,6 +1739,182 @@ def phase_relay(report, n_pairs=48, batch=8, consistency_items=16, num_samples=N
         raise AssertionError("the relay gate did not run at the report's sizes")
     if failed:
         raise AssertionError(f"relay floors failed: {failed}")
+
+
+def _views_by_masks_backend(ps, gen, run, pairs=12):
+    """The default view (seed 2) through each `lmconv.masks_backend` in
+    `pairs` alternating pairs ("jax" first in even pairs, "host" first in
+    odd ones) -> {backend: ([orders_masks ms], [view wall ms], [best
+    images], the last run's outputs, order-kernel launches)}, the i-th
+    entries of the two backends' lists one pair."""
+    import torch
+    from pixelsynth_tpu_torch.ops import orders_device as D
+    from pixelsynth_tpu_torch.scene import StageTimer
+
+    l = ps.cfg.model.lmconv
+    got = {b: ([], [], [], None, 0) for b in ("jax", "host")}
+    for i in range(pairs):
+        for backend in (("jax", "host") if i % 2 == 0 else ("host", "jax")):
+            l.masks_backend = backend
+            stage_ms, wall_ms, bests, _, n = got[backend]
+            launches = D.LAUNCHES["custom_order"]
+            gen.timer = StageTimer(DEVICE)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            best, out = run(2)
+            torch.cuda.synchronize()
+            wall_ms.append((time.perf_counter() - t0) * 1e3)
+            stage_ms.append(gen.timer.times_ms()["orders_masks"])
+            bests.append(best.float())
+            got[backend] = (stage_ms, wall_ms, bests, out,
+                            n + D.LAUNCHES["custom_order"] - launches)
+    l.masks_backend = "jax"
+    gen.timer = StageTimer(DEVICE)
+    return got
+
+
+def check_masks_backends(got):
+    """Both backends give the same orders, masks and sampled codes (the
+    order kernel replaces the heap bit for bit), and views as close as
+    repeated runs of one backend: the card's float sums after the sampler
+    are not bit-reproducible (~1e-6 between runs), so the views are held
+    to 1e-5 of their [-1, 1] range, beside that spread.  The host path
+    launches no order kernel.  Logs each pair's `orders_masks` and view
+    ms and the medians of the pairs' differences ("jax" - "host")."""
+    import numpy as np
+    import torch
+
+    (jms, jwall, jviews, jout, jn), (hms, hwall, hviews, hout, hn) = got["jax"], got["host"]
+    log(f"[view] {len(jms)} alternating pairs on {card_line()}; orders_masks stage ms, "
+        f"masks_backend=\"jax\" (the order kernel): {json.dumps([round(v, 4) for v in jms])}; "
+        f"\"host\" (copy, heap, copy back): {json.dumps([round(v, 4) for v in hms])}; "
+        f"view wall ms \"jax\": {json.dumps([round(v, 2) for v in jwall])}; "
+        f"\"host\": {json.dumps([round(v, 2) for v in hwall])}; order-kernel launches "
+        f"{jn} / {hn}")
+    d_stage = np.subtract(jms, hms)
+    d_wall = np.subtract(jwall, hwall)
+    log(f"[view] paired \"jax\" - \"host\": orders_masks median {np.median(d_stage):.4f} ms "
+        f"({int((d_stage < 0).sum())} of {len(d_stage)} pairs faster with \"jax\"), "
+        f"view wall median {np.median(d_wall):.2f} ms "
+        f"({int((d_wall < 0).sum())} of {len(d_wall)} faster)")
+    same = {k: bool(torch.equal(jout[k], hout[k])) for k in ("order", "masks", "sampled")}
+
+    def spread(views):
+        return max(float((v - views[0]).abs().max()) for v in views)
+
+    within = max(spread(jviews), spread(hviews))
+    gap = max(float((j - h).abs().max()) for j, h in zip(jviews, hviews))
+    log(f"[view] \"jax\" against \"host\": equal {json.dumps(same)}; views max |diff| "
+        f"{gap} (repeated runs of one backend: {within})")
+    if not all(same.values()) or jn < len(jms) or hn != 0:
+        raise AssertionError("the masks backends disagree on the orders or the sampled "
+                             "codes, or the order kernel did not run a view / ran on "
+                             "the host path")
+    if gap > 1e-5:
+        raise AssertionError(f"the \"host\" view differs from the \"jax\" view by {gap}")
+
+
+def _sha256(path):
+    import hashlib
+
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def phase_relay_chain(report):
+    """The port's relay chain (tools/run_relay.py) with --smoke settings at
+    W=128 and the Config() network widths, on the card, into a fresh
+    build/relay_chain/: all ten stages, each stage's seconds and its
+    launches of K1, K2, K3 and the order kernel; the stitched npz loaded by
+    weights.load_stitched_npz renders a finite view in [-1, 1]; the report
+    carries every key of evidence/relay/relay_report.json; and
+    evidence/relay/stitched.npz is byte for byte what it was."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from pixelsynth_tpu_torch.data.panorama import pair_items, val_pairs
+    from pixelsynth_tpu_torch.pipeline import CloudState, PixelSynth
+    from pixelsynth_tpu_torch.scene import SceneGenerator
+    from pixelsynth_tpu_torch.tools.run_relay import STAGE_FNS, STAGES, run_relay
+    from pixelsynth_tpu_torch.weights import from_jax_params, load_stitched_npz
+
+    kept = os.path.join(REPO, "evidence/relay/stitched.npz")
+    sha = _sha256(kept)
+    workdir = os.path.join(REPO, "build", "relay_chain")
+    shutil.rmtree(workdir, ignore_errors=True)
+    names = ("lmconv_up", "lmconv_down", "splat_blend", "masked_conv", "custom_order")
+    per_stage = {}
+    torch.cuda.synchronize()
+    zero_launches()
+    last = [read_launches()]
+
+    def counted(stage, fn):
+        def run(*args):
+            t0 = time.perf_counter()
+            summary = fn(*args)
+            torch.cuda.synchronize()
+            now = read_launches()
+            per_stage[stage] = {k: now[k] - last[0][k] for k in names}
+            last[0] = now
+            log(f"[chain] {stage}: {time.perf_counter() - t0:.2f} s, launches "
+                f"{json.dumps(per_stage[stage])}")
+            return summary
+        return run
+
+    stage_fns = dict(STAGE_FNS)
+    STAGE_FNS.update({k: counted(k, fn) for k, fn in stage_fns.items()})
+    t0 = time.perf_counter()
+    try:
+        results = run_relay(workdir, smoke=True, width=128, device=DEVICE)
+    finally:
+        STAGE_FNS.update(stage_fns)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    log(f"[chain] run_relay --smoke W=128: {secs:.1f} s on {card_line()}; stage s "
+        + json.dumps({k: round(v["seconds"], 2) for k, v in results.items()}))
+    check_no_plain("the relay chain")
+    record_launches(report, launches, ("lmconv_up", "lmconv_down", "splat_blend",
+                                       "custom_order"), "the relay chain")
+    if list(results) != STAGES or any(
+            not os.path.exists(os.path.join(workdir, f"{s}.done.json")) for s in STAGES):
+        raise AssertionError(f"the relay chain ran {list(results)}, not every stage")
+    for k in ("best_val_mse", "val_bpd", "val_accuracy", "val_bpd_lmconv_ema",
+              "val_bpd_dpr_joint"):
+        for stage, summary in results.items():
+            if k in summary:
+                log(f"[chain] {stage} {k}: {summary[k]!r}")
+
+    npz = os.path.join(workdir, "evidence", "stitched.npz")
+    cfg, variables, meta = load_stitched_npz(npz)
+    log(f"[chain] stitched.npz {os.path.getsize(npz) / 1e6:.1f} MB, trees "
+        f"{sorted(variables)}, meta {json.dumps(meta)}")
+    cfg.refresh_splat_perf_knobs()
+    ps = PixelSynth(cfg, device=DEVICE, state_dicts=from_jax_params(variables, cfg))
+    gen = SceneGenerator(ps, num_samples=2)
+    it = pair_items(val_pairs(ps.W, 1))[0]
+    cams = {k: it[k][None] for k in ("K", "Kinv", "P_in", "Pinv_in", "P_out")}
+    best, _ = gen.generate_view(it["input_img"][None], cams,
+                                CloudState.empty(1, ps.W * ps.W, 3, DEVICE), None,
+                                cams["Pinv_in"], 5)
+    b = best.float()
+    log(f"[chain] a view of the stitched checkpoint: shape {tuple(b.shape)}, range "
+        f"[{float(b.min()):.3f}, {float(b.max()):.3f}]")
+    if not (bool(torch.isfinite(b).all()) and float(b.abs().max()) <= 1.0):
+        raise AssertionError("the stitched checkpoint's view is not finite in [-1, 1]")
+
+    with open(os.path.join(REPO, "evidence/relay/relay_report.json")) as f:
+        want = set(json.load(f))
+    with open(os.path.join(workdir, "evidence", "relay_report.json")) as f:
+        got = json.load(f)
+    missing = sorted(want - set(got))
+    log(f"[chain] report: {json.dumps({k: got[k] for k in sorted(got) if isinstance(got[k], (int, float))})}")
+    if missing:
+        raise AssertionError(f"the chain's report lacks {missing}")
+    if _sha256(kept) != sha:
+        raise AssertionError("evidence/relay/stitched.npz changed")
+    log(f"[chain] evidence/relay/stitched.npz unchanged (sha256 {sha[:16]})")
 
 
 def _psnr_png_bound(pred01, tgt01):
@@ -2065,7 +2377,8 @@ def phase_train(report, steps=6):
             f"/{len(params)} parameters, {sum(not torch.equal(now[k], sd[k]) for k in stats)}"
             f"/{len(stats)} batch statistics, "
             f"{sum(not torch.equal(now[k], sd[k]) for k in us)}/{len(us)} spectral u")
-    record_launches(report, launches, ("splat_blend", "masked_conv"), "the train steps")
+    record_launches(report, launches, ("splat_blend", "masked_conv", "custom_order"),
+                    "the train steps")
     del ps
     torch.cuda.empty_cache()
     return B
@@ -2610,6 +2923,7 @@ def main(argv):
     phase_k3(report)
     phase_k4(report)
     phase_k5(report)
+    phase_orders(report)
     if not only_kernels:
         phase_view(report)
         phase_view_f32()
@@ -2625,9 +2939,11 @@ def main(argv):
         phase_train_vqvae()
         phase_train_lmconv(report)
         phase_train_evidence()
+        phase_relay_chain(report)
     log(f"[total] {time.perf_counter() - t0:.1f} s")
     keys = ["name", "route", "source", "replaces", "launches", "launches_by_path",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "heap_ms"]
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in report.values()]}))
     print(card_line())
     if only_kernels:

@@ -37,16 +37,22 @@ each value selects on the card:
     the decoder no mask channel; `model.predict_residual`,
     `normalize_before_residual`: the decoder's residual.
 
-Any other value of these fields, and `lmconv.weight_norm=True`, raises
-NotImplementedError naming the field.  So do the configurations the JAX
-package cannot compute (pipeline.refuse_what_jax_cannot): a "modifier" in
-`depth_predictor_type`, and with an encoder the trainer, the scene view
-step and `predict_residual=True`.  Not read: `model_type` and
-`vqvae.two_level`, which the JAX package reads nowhere either (the
+  * `lmconv.masks_backend` (pipeline.masks_for_background): "jax" = the
+    device order builder (ops/orders_device.py: the CUDA kernel of
+    csrc/custom_order.cu on the card, its plain loop on the CPU); "host" =
+    the heap on the host (ops/orders.py).  Both give the same orders bit
+    for bit.
+
+Any other value of these fields raises NotImplementedError naming the
+field.  So do the configurations the JAX package cannot compute
+(pipeline.refuse_what_jax_cannot): a "modifier" in `depth_predictor_type`,
+and with an encoder the trainer, the scene view step and
+`predict_residual=True`.  Not read: `model_type`, `vqvae.two_level` and
+`lmconv.weight_norm`, which the JAX package reads nowhere either (the
 baselines and the two-level VQ-VAE are built by their own classes,
-models/baselines.py and models/vqvae.py); `use_pallas` and `masks_backend`,
-which belong to paths the port does not have (the blend always runs K2,
-orders and masks are built on the host).
+models/baselines.py and models/vqvae.py; `weight_norm` appears only in its
+config.py); `use_pallas`, which belongs to a path the port does not have
+(the blend always runs K2).
 """
 
 from __future__ import annotations

@@ -71,6 +71,29 @@ def val_batches(shard: Dict[str, np.ndarray], batch: int) -> List[Dict]:
             for i in range(0, len(items), batch)]
 
 
+def shard_pairs(data_dir: str, n: int) -> Dict[str, np.ndarray]:
+    """The first `n` pairs of the `val_*.npz` shards under data_dir, in
+    name order, as one shard (the JAX relay report's `_val_batches`,
+    eval/relay_report.py:53-70)."""
+    import glob
+
+    parts: Dict[str, List[np.ndarray]] = {"images": [], "P": [], "Pinv": []}
+    K = Kinv = None
+    left = n
+    for path in sorted(glob.glob(os.path.join(data_dir, "val_*.npz"))):
+        if left <= 0:
+            break
+        with np.load(path) as z:
+            for k in parts:
+                parts[k].append(z[k][:left])
+            if K is None:
+                K, Kinv = z["K"], z["Kinv"]
+        left -= len(parts["images"][-1])
+    if K is None:
+        raise FileNotFoundError(f"no val_*.npz shards in {data_dir}")
+    return {**{k: np.concatenate(v) for k, v in parts.items()}, "K": K, "Kinv": Kinv}
+
+
 def paired_eval(ps, gen: SceneGenerator, batches: List[Dict],
                 out_dir: Optional[str] = None) -> Dict[str, float]:
     """gen_paired_img against the no-outpaint baseline on held-out pairs.
@@ -212,13 +235,15 @@ def scene_walk_metrics(cfg, world: Dict, scene_dir: str,
 
 def build_report(ckpt: str, out_dir: str, *, device="cuda",
                  num_samples: Optional[int] = None, n_pairs: int = 48,
-                 batch: int = 8, consistency_items: int = 16) -> Dict:
+                 batch: int = 8, consistency_items: int = 16,
+                 shards_dir: Optional[str] = None) -> Dict:
     """The whole report on a stitched checkpoint: the paired and the
     consistency evals at T=0.5 on `n_pairs` held-out pairs in batches of
-    `batch`, then the demo CLI's walk of the held-out world at the
-    checkpoint's own walk settings (its input written by `save_png` and
-    read back by the demo, as the JAX relay ran it), scored from the PNGs
-    it writes.  Writes <out_dir>/relay_report.json, the strips,
+    `batch` (`val_pairs`, or with `shards_dir` the first pairs of its val
+    shards, as the relay chain scores its own data), then the demo CLI's
+    walk of the held-out world at the checkpoint's own walk settings (its
+    input written by `save_png` and read back by the demo, as the JAX
+    relay ran it), scored from the PNGs it writes.  Writes <out_dir>/relay_report.json, the strips,
     demo_input.png and scene_out/."""
     from pixelsynth_tpu_torch import demo as demo_cli
 
@@ -232,7 +257,9 @@ def build_report(ckpt: str, out_dir: str, *, device="cuda",
                     "scene_temperature": cfg.sample.temperature,
                     "classifier": "trained" if ps.classifier is not None else "absent",
                     "device": str(ps.device), "time": time.time()}
-    batches = val_batches(val_pairs(cfg.model.W, n_pairs), batch)
+    pairs = (shard_pairs(shards_dir, n_pairs) if shards_dir
+             else val_pairs(cfg.model.W, n_pairs))
+    batches = val_batches(pairs, batch)
     t0 = time.time()
     report.update(paired_eval(ps, gen, batches, out_dir=out_dir))
     report["paired_eval_seconds"] = time.time() - t0

@@ -112,6 +112,13 @@ def load_torch_resnet18(npz_path: str) -> Dict:
     return {"params": params, "batch_stats": stats}
 
 
+def classifier_num_classes(variables: Dict) -> int:
+    """The class count of ResNet18 variables (the final Dense kernel's
+    width): Places365's 365, or the in-repo world classifier's count
+    (tools/train_scene_classifier.py)."""
+    return int(np.asarray(variables["params"]["Dense_0"]["kernel"]).shape[-1])
+
+
 def save_classifier_npz(path: str, variables: Dict) -> None:
     """ResNet18 variables -> one npz of slash-joined keys."""
     from pixelsynth_tpu_torch.weights import flatten_tree
@@ -132,7 +139,7 @@ def classifier_from_variables(variables: Dict) -> ResNet18:
     of any label space (the Dense kernel's width)."""
     from pixelsynth_tpu_torch.weights import merge_collections
 
-    model = ResNet18(int(np.asarray(variables["params"]["Dense_0"]["kernel"]).shape[-1]))
+    model = ResNet18(classifier_num_classes(variables))
     with torch.no_grad():
         model.load_flax(merge_collections(variables))
     return model.eval()

@@ -39,6 +39,10 @@ def _t(a, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(np.asarray(a, np.float32)).to(like.device)
 
 
+def _n(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().astype(np.float32)
+
+
 def l2norm(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return x / (torch.linalg.vector_norm(x) + eps)
 
@@ -113,6 +117,13 @@ class FlaxNamed(nn.Module):
         for name, child in self.named_children():
             child.load_flax(node[name])
 
+    def to_flax(self) -> Dict:
+        """The inverse of `load_flax`: the module's leaves as one merged
+        Flax tree of float32 numpy arrays (weights.split_collections sorts
+        them into collections).  Only the trainer's build can be inverted:
+        a serving build has folded its spectral norms."""
+        return {name: child.to_flax() for name, child in self.named_children()}
+
     def reset(self, gen: torch.Generator) -> None:
         for child in self.children():
             child.reset(gen)
@@ -174,6 +185,17 @@ class Conv(FlaxNamed):
         if self.bias is not None:
             self.bias.copy_(_t(node["bias"], self.bias))
 
+    def to_flax(self):
+        if self.spectral and not self.sn_state:
+            raise ValueError("a serving Conv keeps its weight divided by its "
+                             "spectral norm; only the trainer's build inverts")
+        out = {"kernel": _n(self.weight.permute(2, 3, 1, 0))}
+        if self.bias is not None:
+            out["bias"] = _n(self.bias)
+        if self.sn_state:
+            out.update(u=_n(self.u), v=_n(self.v))
+        return out
+
 
 class ConvTranspose(FlaxNamed):
     """Flax nn.ConvTranspose(k=4, strides=2, padding="SAME"), i.e. a conv of
@@ -201,6 +223,10 @@ class ConvTranspose(FlaxNamed):
         self.weight.copy_(torch.flip(k, (0, 1)).permute(2, 3, 0, 1))
         self.bias.copy_(_t(node["bias"], self.bias))
 
+    def to_flax(self):
+        return {"kernel": _n(torch.flip(self.weight.permute(2, 3, 0, 1), (0, 1))),
+                "bias": _n(self.bias)}
+
 
 class Dense(FlaxNamed):
     def __init__(self, cin, cout):
@@ -219,6 +245,9 @@ class Dense(FlaxNamed):
     def load_flax(self, node):
         self.weight.copy_(_t(node["kernel"], self.weight).T)
         self.bias.copy_(_t(node["bias"], self.bias))
+
+    def to_flax(self):
+        return {"kernel": _n(self.weight.T), "bias": _n(self.bias)}
 
 
 def batch_moments(x: torch.Tensor):
@@ -274,6 +303,14 @@ class BatchNorm(FlaxNamed):
         if self.shift is not None:
             self.shift.copy_(_t(node["bias"], self.shift))
 
+    def to_flax(self):
+        out = {"mean": _n(self.mean), "var": _n(self.var)}
+        if self.scale is not None:
+            out["scale"] = _n(self.scale)
+        if self.shift is not None:
+            out["bias"] = _n(self.shift)
+        return out
+
 
 class SyncBatchNorm(FlaxNamed):
     """SyncBatchNorm (layers.py:122-150): a named wrapper of one Flax
@@ -328,6 +365,12 @@ class StandingStatsBN(FlaxNamed):
             names.append("accumulation_counter")
         for name in names:
             getattr(self, name).copy_(_t(node[name], getattr(self, name)))
+
+    def to_flax(self):
+        names = ["gain", "bias", "stored_mean", "stored_var"]
+        if hasattr(self, "accumulation_counter"):
+            names.append("accumulation_counter")
+        return {name: _n(getattr(self, name)) for name in names}
 
 
 class NoiseBN(FlaxNamed):
@@ -397,6 +440,17 @@ class NoiseBN(FlaxNamed):
                 w = w / torch.linalg.vector_norm(w.T @ v)
             p.copy_(w)
         self.BatchNorm_0.load_flax(node["BatchNorm_0"])
+
+    def to_flax(self):
+        if self.spectral and not self.sn_state:
+            raise ValueError("a serving NoiseBN keeps its kernels divided by "
+                             "their spectral norms; only the trainer's build inverts")
+        out = {"gain_kernel": _n(self.wg), "bias_kernel": _n(self.wb),
+               "BatchNorm_0": self.BatchNorm_0.to_flax()}
+        if self.sn_state:
+            for name in SPECTRAL_NAMES[2:]:
+                out[name] = _n(getattr(self, name))
+        return out
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:

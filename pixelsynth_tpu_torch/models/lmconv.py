@@ -92,6 +92,11 @@ class LMConv(FlaxNamed):
             if p is not None:
                 p.copy_(_t(node[name], p))
 
+    def to_flax(self):
+        return {name: getattr(self, name).detach().cpu().numpy().astype(np.float32)
+                for name in ("weight", "bias", "mask_weight")
+                if getattr(self, name) is not None}
+
     def _kernel_weight(self):
         """The weight as the kernel reads it, made once per version of the
         weight: the bf16 cast, on the card as `PackedTaps` (the kernel's
@@ -184,6 +189,10 @@ class GatedResnet(FlaxNamed):
             if name != "norm":
                 child.load_flax(node[name])
 
+    def to_flax(self):
+        return {name: child.to_flax() for name, child in self.named_children()
+                if name != "norm"}
+
     def reset(self, gen):
         for name, child in self.named_children():
             if name != "norm":
@@ -252,6 +261,10 @@ class LMPixelCNN(FlaxNamed):
         for name, child in self.named_children():
             if name != "norm":
                 child.load_flax(node[name])
+
+    def to_flax(self):
+        return {name: child.to_flax() for name, child in self.named_children()
+                if name != "norm"}
 
     def reset(self, gen):
         for name, child in self.named_children():

@@ -87,6 +87,10 @@ class Quantize(FlaxNamed):
                 getattr(self, name).copy_(
                     torch.tensor(np.asarray(node[name], np.float32)))
 
+    def to_flax(self):
+        return {name: getattr(self, name).detach().cpu().numpy().astype(np.float32)
+                for name in ("embed", "cluster_size", "embed_avg")}
+
 
 class ResBlock(FlaxNamed):
     """conv(relu(x)) + relu(x) (the reference's inplace-ReLU semantics)."""

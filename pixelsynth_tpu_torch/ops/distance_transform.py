@@ -1,7 +1,7 @@
 """Batched distance transforms on the code grid (port of
 pixelsynth_tpu/ops/distance_transform.py): exact L2 as one (HW x HW)
 masked min per image, or the cv2 maskSize=5 chamfer approximation as
-iterated min-plus relaxation."""
+iterated min-plus relaxation; and the foreground's mean-of-mass point."""
 
 from __future__ import annotations
 
@@ -75,3 +75,16 @@ def signed_distance_field(foreground: torch.Tensor, background=None, *,
     bg = 1.0 - fg if background is None else (background != 0).float()
     dist = distance_to_zero if mode == "exact" else chamfer_distance_to_zero
     return torch.trunc(dist(fg) - dist(bg)).to(torch.int32)
+
+
+def foreground_mass_center(foreground: torch.Tensor) -> torch.Tensor:
+    """(B, 2) int32 [x, y] mean-of-mass points (z_buffermodel.py:655-664):
+    the mean over ALL pixels of coordinate * mask, as the reference takes
+    it (not the mean over the foreground pixels)."""
+    fg = (foreground != 0).float()
+    B, H, W = fg.shape
+    ys = torch.arange(H, dtype=torch.float32, device=fg.device)[:, None].expand(H, W)
+    xs = torch.arange(W, dtype=torch.float32, device=fg.device)[None, :].expand(H, W)
+    mx = (fg * xs).reshape(B, -1).mean(1)
+    my = (fg * ys).reshape(B, -1).mean(1)
+    return torch.stack([mx, my], 1).to(torch.int32)

@@ -1,28 +1,35 @@
-"""Generation orders (host heap) and kernel masks (device) for the
-locally-masked PixelCNN.
+"""Generation orders and kernel masks for the locally-masked PixelCNN
+(port of pixelsynth_tpu/ops/orders.py, and of its device masks).
 
-The greedy order pops HW pixels one at a time, each pop depending on the
-last -- inherently sequential, and on the card it would cost thousands of
-tiny launches per view.  So it runs on the host with a heap, the shape of
-the reference's Cython routine (get_custom_order.pyx:50-82) and of the JAX
-package's host backend (native/custom_order.cpp, ported here to Python's
-heapq): start at the first row-major maximum of the distances (scaled by
-10000), then repeatedly push the unvisited 4-neighbours of the last popped
-pixel and pop the heap minimum of (-distance, r, c).  The kernel masks are
-rank-grid shift comparisons on the device.  Both match
+The greedy order (the reference's Cython routine, get_custom_order.pyx:
+50-82) starts at the first row-major maximum of the distances (scaled by
+10000), then repeatedly pushes the unvisited 4-neighbours of the last
+popped pixel and pops the heap minimum of (-distance, r, c).  On the host
+it runs as the JAX package's does: the C++ heap of native/custom_order.cpp
+(read, never written: the port builds it with g++ into build/native/,
+which .gitignore lists) when it builds, else the same heap in Python
+(`custom_order_one`); `HOST_ORDER_PATH` names the path the last call
+took.  The flat (B, H*W) order (`custom_order_flat`) is the primitive;
+`custom_order` is JAX's (row, col) form over it.
+The device builder of the same order is ops/orders_device.py;
+pipeline.masks_for_background picks one by `lmconv.masks_backend`.  The
+kernel masks are rank-grid shift comparisons on the device.  Both match
 pixelsynth_tpu/ops/orders_jax.orders_and_masks_jax bit for bit.
 
 The training side's orders and masks (pixelsynth_tpu/ops/orders.py:68-300)
 are numpy on the host, bit for bit the JAX package's: the raster,
-s-curve and Hilbert orders, their 8 symmetry variants, and the compact
-(k*k, H*W) mask triple of an order (`masks_for_order`), stacked over a
-batch by `masks_for_orders_batch`; `rank_from_flat_order` is
-orders_jax.py:83's.
+s-curve and Hilbert orders and `generation_order`'s dispatch over them,
+their 8 symmetry variants, and the compact (k*k, H*W) mask triple of an
+order (`masks_for_order`), stacked over a batch by
+`masks_for_orders_batch`; `rank_from_flat_order` is orders_jax.py:83's.
 """
 
 from __future__ import annotations
 
+import ctypes
 import heapq
+import os
+import subprocess
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -31,9 +38,42 @@ import torch.nn.functional as F
 
 _BIG_RANK = 1 << 30
 
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+NATIVE_SRC = os.path.join(_REPO, "native", "custom_order.cpp")
+NATIVE_LIB = os.path.join(_REPO, "build", "native", "libcustom_order.so")
+_native = None
+_native_tried = False
+# "native" | "heap": the path the last host order took
+HOST_ORDER_PATH: Optional[str] = None
+
+
+def _load_native():
+    """The C++ heap (native/custom_order.cpp), built on first use with g++
+    into build/native/; None when it does not build or load."""
+    global _native, _native_tried
+    if _native_tried:
+        return _native
+    _native_tried = True
+    try:
+        if not os.path.exists(NATIVE_LIB):
+            os.makedirs(os.path.dirname(NATIVE_LIB), exist_ok=True)
+            tmp = f"{NATIVE_LIB}.{os.getpid()}.tmp"
+            subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-o", tmp, NATIVE_SRC],
+                           check=True, capture_output=True)
+            os.replace(tmp, NATIVE_LIB)
+        lib = ctypes.CDLL(NATIVE_LIB)
+        lib.custom_order_batch.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32)]
+        lib.custom_order_batch.restype = None
+        _native = lib
+    except (OSError, subprocess.CalledProcessError):
+        _native = None
+    return _native
+
 
 def custom_order_one(dist: np.ndarray) -> np.ndarray:
-    """(H, W) int distances -> (H*W,) flat generation order."""
+    """(H, W) int distances -> (H*W,) flat generation order, by heapq."""
     H, W = dist.shape
     d = dist.astype(np.int64).reshape(-1) * 10000
     best = int(np.argmax(d))
@@ -54,9 +94,48 @@ def custom_order_one(dist: np.ndarray) -> np.ndarray:
     return np.asarray(order, np.int64)
 
 
-def custom_order(distances: np.ndarray) -> np.ndarray:
-    """(B, H, W) int distances -> (B, H*W) flat orders."""
-    return np.stack([custom_order_one(d) for d in np.asarray(distances)])
+def custom_order_flat(distances: np.ndarray) -> np.ndarray:
+    """(B, H, W) int distances -> (B, H*W) int64 flat orders on the host:
+    the native heap when it builds (its (row, col) pairs made flat), else
+    `custom_order_one` (`HOST_ORDER_PATH` says which)."""
+    global HOST_ORDER_PATH
+    distances = np.asarray(distances)
+    B, rows, cols = distances.shape
+    lib = _load_native()
+    if lib is None:
+        HOST_ORDER_PATH = "heap"
+        return np.stack([custom_order_one(d) for d in distances])
+    din = np.ascontiguousarray(distances.reshape(B, -1), np.int32)
+    out = np.empty((B, rows * cols, 2), np.int32)
+    lib.custom_order_batch(B, rows, cols,
+                           din.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                           out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    HOST_ORDER_PATH = "native"
+    return out[..., 0].astype(np.int64) * cols + out[..., 1]
+
+
+def _flat_to_rc(flat: np.ndarray, cols: int) -> np.ndarray:
+    return np.stack([flat // cols, flat % cols], -1).astype(np.int32)
+
+
+def _custom_order_py(rows: int, cols: int, distances: np.ndarray) -> np.ndarray:
+    """The heap in Python -> (rows*cols, 2) int32 [row, col]."""
+    return _flat_to_rc(custom_order_one(np.asarray(distances).reshape(rows, cols)), cols)
+
+
+def custom_order(distances: np.ndarray,
+                 mass_center: Optional[np.ndarray] = None) -> np.ndarray:
+    """JAX's signature over `custom_order_flat`: (rows, cols) or (B, rows,
+    cols) int signed distances -> (rows*cols, 2) or (B, rows*cols, 2)
+    int32 [row, col].  mass_center is taken for the reference's signature
+    (masking.py:51-68) and, as in its shipped Cython code, changes
+    nothing."""
+    del mass_center
+    distances = np.asarray(distances)
+    single = distances.ndim == 2
+    out = _flat_to_rc(custom_order_flat(distances[None] if single else distances),
+                      distances.shape[-1])
+    return out[0] if single else out
 
 
 def masks_from_rank(rank: torch.Tensor, *, H: int, W: int, k: int = 3,
@@ -98,7 +177,7 @@ def orders_and_masks(distances: torch.Tensor, k: int = 3,
     is computed on the host (one device->host copy of B*HW ints)."""
     B, H, W = distances.shape
     dev = distances.device
-    flat = torch.as_tensor(custom_order(distances.cpu().numpy()), device=dev)
+    flat = torch.as_tensor(custom_order_flat(distances.cpu().numpy()), device=dev)
     rank = torch.empty_like(flat)
     rank.scatter_(1, flat, torch.arange(H * W, device=dev).expand(B, -1))
     masks = masks_from_rank(rank, H=H, W=W, k=k, max_dilation=max_dilation)
@@ -145,6 +224,32 @@ def hilbert_order(rows: int, cols: int) -> np.ndarray:
             s *= 2
         out[d] = (y, x)
     return out.astype(np.int32)
+
+
+def generation_order(order: str, rows: int, cols: int,
+                     distances: Optional[np.ndarray] = None,
+                     mass_center: Optional[np.ndarray] = None) -> np.ndarray:
+    """The order named `order` (masking.get_generation_order_idx,
+    masking.py:113-119): "raster_scan", "s_curve", "hilbert",
+    "s_curve_center_quarter_last" (the s-curve with the centre half of
+    each axis moved to the end) or "custom" (`custom_order` of the
+    distances)."""
+    if order == "raster_scan":
+        return raster_scan_order(rows, cols)
+    if order == "s_curve":
+        return s_curve_order(rows, cols)
+    if order == "hilbert":
+        return hilbert_order(rows, cols)
+    if order == "s_curve_center_quarter_last":
+        o = s_curve_order(rows, cols).tolist()
+        r0, c0 = rows // 4, cols // 4
+        inside = [r0 <= r < rows - r0 and c0 <= c < cols - c0 for r, c in o]
+        return np.array([p for p, i in zip(o, inside) if not i]
+                        + [p for p, i in zip(o, inside) if i], np.int32)
+    if order == "custom":
+        assert distances is not None
+        return custom_order(distances, mass_center)
+    raise ValueError(f"unknown order {order!r}")
 
 
 def augment_orders(order: np.ndarray, rows: int, cols: int) -> List[np.ndarray]:

@@ -60,6 +60,7 @@ from pixelsynth_tpu_torch.ops.lmconv_fused import (
 )
 from pixelsynth_tpu_torch.ops.masked_conv_kernel import prepare_mask
 from pixelsynth_tpu_torch.ops.orders import orders_and_masks
+from pixelsynth_tpu_torch.ops.orders_device import orders_and_masks_device
 from pixelsynth_tpu_torch.ops.splat import splat
 from pixelsynth_tpu_torch.weights import unflatten_tree
 
@@ -204,6 +205,17 @@ def build_vqvae(cfg: Config) -> VQVAETop:
 
 
 SAMPLE_BACKENDS = ("fused", "pallas", "xla")
+MASKS_BACKENDS = ("jax", "host")
+
+
+def masks_backend_is_host(l) -> bool:
+    """`lmconv.masks_backend` (l an LMConvConfig): "host" -> True, "jax"
+    -> False; any other value raises."""
+    if l.masks_backend not in MASKS_BACKENDS:
+        raise NotImplementedError(
+            f"lmconv.masks_backend={l.masks_backend!r}: the port implements "
+            f"{MASKS_BACKENDS}")
+    return l.masks_backend == "host"
 
 
 def build_pixelcnn(cfg: Config, *, trainable: bool = False) -> LMPixelCNN:
@@ -223,8 +235,7 @@ def build_pixelcnn(cfg: Config, *, trainable: bool = False) -> LMPixelCNN:
         field = "train_backend" if trainable else "sample_backend"
         raise NotImplementedError(
             f"lmconv.{field}={backend!r}: the port implements {backends}")
-    if l.weight_norm:
-        raise NotImplementedError("lmconv.weight_norm=True is not ported")
+    masks_backend_is_host(l)
     if trainable:
         dtype = l.compute_dtype if backend == "pallas" else None
     else:
@@ -490,14 +501,24 @@ class PixelSynth:
                                            cur_valid)
         return gen_fs, bg, new_state
 
-    def masks_for_background(self, bg_mask: torch.Tensor):
-        """-> (order (B, HW, 2), masks (B, 3, k^2, HW), bg_ds (B, h, w))."""
+    def masks_for_background(self, bg_mask: torch.Tensor, *,
+                             host: Optional[bool] = None):
+        """The generation orders and kernel masks of a batch's background
+        (z_buffermodel.py:641-701; pipeline.py:375-397): the signed distance
+        field of the downsampled masks, then the greedy order by
+        `lmconv.masks_backend` -- "jax" the device builder
+        (ops/orders_device.py, the CUDA kernel on the card), "host" the heap
+        after a copy to the host (ops/orders.py); `host` overrides the field.
+        -> (order (B, HW, 2), masks (B, 3, k^2, HW), bg_ds (B, h, w))."""
         fg_ds = downsample_mask(~bg_mask)
         bg_ds = downsample_mask(bg_mask)
         l = self.cfg.model.lmconv
+        if host is None:
+            host = masks_backend_is_host(l)
         distances = signed_distance_field(binarize_trunc(fg_ds),
                                           binarize_trunc(bg_ds), mode=l.dt_mode)
-        order, masks = orders_and_masks(distances, l.kernel_size, l.max_dilation)
+        build = orders_and_masks if host else orders_and_masks_device
+        order, masks = build(distances, l.kernel_size, l.max_dilation)
         return order, masks, bg_ds
 
     def vq_encode(self, img):

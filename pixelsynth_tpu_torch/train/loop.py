@@ -9,8 +9,9 @@ degrees every curriculum_every epochs), a validation pass on a disjoint
 stream whose PSNR picks the best checkpoint, rolling + best + periodic
 checkpoints with the latest/ slot, and resume from the newest step.
 SIGTERM / SIGINT set a flag; the loop checkpoints and stops.  The port
-has one source of batches, `dataset="synthetic"`; the datasets on disk
-(RealEstate10K, habitat shards, custom) are not ported."""
+reads two sources of batches: `dataset="synthetic"` and the exported
+habitat shards ("mp3d" / "replica" / "habitat"); RealEstate10K, custom
+folders and the live habitat bridge are not ported."""
 
 from __future__ import annotations
 
@@ -61,25 +62,44 @@ class PreemptionGuard:
 
 
 def make_batch_source(cfg: Config, split: str = "train") -> Callable[[], Dict]:
-    """Batches of `cfg.dataset`: "synthetic" (data/synthetic.py), with
-    disjoint numpy streams for train and the other splits."""
-    if cfg.dataset != "synthetic":
+    """Batches of `cfg.dataset` (the reference's options/options.py:21-113),
+    numpy, with the seed cfg.train.seed for the train split and that plus
+    10000 for the others: "synthetic" (data/synthetic.py); "mp3d",
+    "replica" or "habitat", the exported shards under
+    `cfg.train_data_path` (data/habitat.py; the split's own shards where
+    there are any).  "realestate", "custom" and the live simulator bridge
+    "habitat_live" are not ported and raise."""
+    seed = cfg.train.seed + (10_000 if split != "train" else 0)
+    if cfg.dataset == "synthetic":
+        rng = np.random.default_rng(seed)
+
+        def fn():
+            from pixelsynth_tpu_torch.data.synthetic import synthetic_pair_batch
+
+            return synthetic_pair_batch(rng, cfg.train.batch_size, cfg.model.W)
+
+    elif cfg.dataset in ("mp3d", "replica", "habitat"):
+        from pixelsynth_tpu_torch.data.habitat import PreRenderedEpisodes
+
+        episodes = PreRenderedEpisodes(cfg.train_data_path, seed=seed, split=split)
+
+        def fn():
+            return episodes.batch(cfg.train.batch_size)
+
+    else:
         raise NotImplementedError(
             f"dataset={cfg.dataset!r}: the port's trainer reads the synthetic "
-            "source only")
-    rng = np.random.default_rng(cfg.train.seed + (10_000 if split != "train" else 0))
-
-    def fn():
-        from pixelsynth_tpu_torch.data.synthetic import synthetic_pair_batch
-
-        return synthetic_pair_batch(rng, cfg.train.batch_size, cfg.model.W)
-
+            "source and exported habitat shards (mp3d, replica, habitat) only")
     return fn
+
+
+DPR_TREES = ("unet", "projector", "vqvae", "pixelcnn", "disc")
 
 
 def run_dpr(cfg: Config, workdir: str, *, epochs: Optional[int] = None,
             iters_per_epoch: Optional[int] = None, val_iters: Optional[int] = None,
             log_fn: Callable[[str], None] = print, train_ar: bool = True,
+            init_state: Optional[Dict[str, Dict]] = None,
             device="cuda") -> Dict[str, float]:
     """Stage-2 training driver.  Returns the last epoch's metrics.
 
@@ -87,10 +107,19 @@ def run_dpr(cfg: Config, workdir: str, *, epochs: Optional[int] = None,
     from the val stream; its mean PSNR picks the best checkpoint
     (train_dpr.py:164-218, 316-322).  train_ar=False is the reference's
     --pretrain mode (no AR loss).  Every tree starts from the seeded
-    initialiser (the JAX driver's `init_vars`, which chains the relay's
-    stages, has no caller in the port)."""
+    initialiser; `init_state` ({tree: state dict} of the trainer's build,
+    trees of DPR_TREES) then loads over the trees it names -- the JAX
+    driver's `init_vars` (loop.py:157-179), by which the relay chains its
+    stages (the trained VQ-VAE, the stage-3 prior, a pretrain's trees).
+    An unknown tree raises KeyError."""
     guard = PreemptionGuard()
     ps = PixelSynth(cfg, device=device, seed=cfg.train.seed, trainable=True)
+    if init_state:
+        unknown = set(init_state) - set(DPR_TREES)
+        if unknown:
+            raise KeyError(f"init_state has unknown trees: {sorted(unknown)}")
+        for name, sd in init_state.items():
+            getattr(ps, name).load_state_dict(sd)
     state = create_dpr_state(ps)
     step_fn = make_dpr_train_step(ps, state, train_ar=train_ar)
     eval_fn = make_dpr_eval_step(ps, train_ar=train_ar)

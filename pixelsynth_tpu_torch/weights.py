@@ -27,6 +27,10 @@ step uses onto the port's modules and returns their state dicts:
   * `from_jax_module` loads one Flax module's variables into a port module
     of the same names: the two-level VQ-VAE (models/vqvae.py `VQVAE`),
     the baselines (models/baselines.py) and any tree above;
+  * `to_jax_params` is the inverse of the trainable bridge: the trainer's
+    state dicts back to Flax trees of every collection (each module's
+    `to_flax`, sorted by `split_collections`), which the stitched
+    checkpoint stores (tools/stitch_checkpoint.py);
   * the PixelCNN tree loads into the `LMPixelCNN` module by name
     (`LMConv_i/{weight,bias,mask_weight}`, `GatedResnet_i/LMConv_{0,1}`,
     `GatedResnet_i/Nin_0/Dense_0`, `Nin_0/Dense_0`); lmconv taps keep their
@@ -102,6 +106,68 @@ def merge_collections(variables: Dict) -> Dict:
         if col in variables:
             put(merged, variables[col])
     return merged
+
+
+# the collection of each non-`params` leaf, as the JAX package files them
+LEAF_COLLECTION = {
+    **{n: "spectral_stats" for n in ("u", "v", "u_gain", "v_gain", "u_bias", "v_bias")},
+    **{n: "batch_stats" for n in ("mean", "var", "stored_mean", "stored_var",
+                                  "accumulation_counter")},
+    **{n: "ema" for n in ("embed", "cluster_size", "embed_avg")},
+}
+
+
+def split_collections(merged: Dict) -> Dict:
+    """The inverse of `merge_collections`: one module tree -> {"params":
+    ..., "batch_stats": ..., "spectral_stats": ..., "ema": ...}, each leaf
+    in the collection LEAF_COLLECTION names (else "params"); empty
+    collections are left out."""
+    out: Dict = {}
+
+    def walk(node, path):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+                continue
+            tree = out.setdefault(LEAF_COLLECTION.get(k, "params"), {})
+            for p in path:
+                tree = tree.setdefault(p, {})
+            tree[k] = v
+
+    walk(merged, ())
+    return out
+
+
+def to_jax_params(state_dicts: Dict[str, Dict], cfg: Config) -> Dict[str, Dict]:
+    """The inverse of `from_jax_params(..., trainable=True)`: {tree: the
+    trainer's state dict} -> {tree: Flax variables of every collection}
+    in the key layout `load_stitched_npz` (this module's and the JAX
+    package's) reads.  Conv kernels OIHW -> HWIO, the ConvTranspose flip
+    undone, Linear -> Dense, the raw spectral kernels with their `u` / `v`
+    (the trainer's build; a serving build's folded weights cannot be
+    inverted).  Trees: those of the stage-2 trainer (unet, projector,
+    vqvae, disc, vgg, pixelcnn) and "classifier" (a ResNet18 of the state
+    dict's class count)."""
+    import torch
+
+    from pixelsynth_tpu_torch.models.classifier import ResNet18
+    from pixelsynth_tpu_torch.pipeline import build_modules, build_pixelcnn
+
+    proj_in = None
+    if "projector" in state_dicts:
+        proj_in = int(state_dicts["projector"]["ResNetBlock_0.SNConv_0.weight"].shape[1])
+    modules = build_modules(cfg, trainable=True, projector_in=proj_in)
+    modules["pixelcnn"] = build_pixelcnn(cfg, trainable=True)
+    if "classifier" in state_dicts:
+        modules["classifier"] = ResNet18(
+            int(state_dicts["classifier"]["Dense_0.weight"].shape[0]))
+    out = {}
+    with torch.no_grad():
+        for name, sd in state_dicts.items():
+            module = modules[name]
+            module.load_state_dict(sd)
+            out[name] = split_collections(module.to_flax())
+    return out
 
 
 def from_jax_params(variables: Dict, cfg: Config, *,

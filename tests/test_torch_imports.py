@@ -71,6 +71,12 @@ EVAL_MODULES = [
     "pixelsynth_tpu_torch.utils.camera_paths", "pixelsynth_tpu_torch.models.encoderdecoder",
     "pixelsynth_tpu_torch.models.vqvae", "pixelsynth_tpu_torch.models.baselines",
     "pixelsynth_tpu_torch.models.depth_model", "pixelsynth_tpu_torch.models.dmol",
+    # the order builders and the relay chain
+    "pixelsynth_tpu_torch.ops.orders", "pixelsynth_tpu_torch.ops.orders_device",
+    "pixelsynth_tpu_torch.data.habitat", "pixelsynth_tpu_torch.data.loader",
+    "pixelsynth_tpu_torch.train.loop", "pixelsynth_tpu_torch.tools.export_habitat_shards",
+    "pixelsynth_tpu_torch.tools.train_scene_classifier",
+    "pixelsynth_tpu_torch.tools.stitch_checkpoint", "pixelsynth_tpu_torch.tools.run_relay",
 ]
 
 

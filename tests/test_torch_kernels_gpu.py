@@ -200,3 +200,23 @@ def test_k3_pixelcnn_without_a_gradient_on_card():
     with chip_smoke.plain_kernels(), torch.no_grad():
         plain = lmconv_loss(model, codes_b, masks_b)
     assert abs(float(got) - float(plain)) <= 2e-2 * abs(float(plain))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,side", [(1, 32), (64, 32), (4, 16), (3, 7), (2, 48)])
+def test_order_kernel_matches_plain_and_heap_on_card(B, side):
+    """The order kernel against its plain version and the host heap, bit
+    for bit, on grids with many equal distances, one launch a call."""
+    _need_card()
+    import numpy as np
+    from pixelsynth_tpu_torch.ops import orders as O
+    from pixelsynth_tpu_torch.ops import orders_device as D
+
+    rng = np.random.default_rng(side + B)
+    dist = torch.as_tensor(rng.integers(-3, 4, (B, side, side + 1)).astype(np.int32),
+                           device="cuda")
+    before = D.LAUNCHES["custom_order"]
+    got = D.custom_order_device(dist)
+    assert D.LAUNCHES["custom_order"] == before + 1
+    assert torch.equal(got, D.custom_order_plain(dist))
+    assert np.array_equal(got.cpu().numpy(), O.custom_order_flat(dist.cpu().numpy()))

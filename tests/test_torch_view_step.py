@@ -146,6 +146,39 @@ def test_view_step_matches_jax(gens):
 
 
 @pytest.mark.filterwarnings("ignore:SceneGenerator")
+def test_port_stitched_npz_renders_the_jax_view(gens, tmp_path):
+    """A stitched.npz written by the port (the fixture's weights as the
+    trainer's state dicts -> to_jax_params -> save_stitched_npz, float16
+    leaves) loads in the JAX package's demo.load_model and in the port,
+    and the two give the same view.  The JAX side reuses the fixture's
+    compiled view step: the file's config is the fixture's (load_model
+    resets the splat's schedule knobs, whose output is bit-identical:
+    JAX's Config.refresh_splat_perf_knobs) and its trees have the
+    fixture's structure, shapes and dtypes."""
+    import copy
+
+    from pixelsynth_tpu import demo as jax_demo
+    from pixelsynth_tpu.utils.devices import put_variables
+    from pixelsynth_tpu_torch.tools.stitch_checkpoint import save_stitched_npz
+    from pixelsynth_tpu_torch.weights import to_jax_params
+
+    jps, jgen, _, variables = gens
+    cfg = tiny(Config())
+    sd = from_jax_params(jax.tree_util.tree_map(np.asarray, jax.device_get(variables)),
+                         cfg, trainable=True)
+    npz = str(tmp_path / "stitched.npz")
+    save_stitched_npz(npz, to_jax_params(sd, cfg), cfg, {"prior": "test"})
+    loaded_ps, jvars = jax_demo.load_model(npz)
+    assert loaded_ps.cfg.to_json() == copy.deepcopy(jps.cfg).refresh_splat_perf_knobs().to_json()
+    assert (jax.tree_util.tree_structure(jvars)
+            == jax.tree_util.tree_structure(jgen.variables))
+    stitched = copy.copy(jgen)
+    stitched.variables = put_variables(jvars)
+    _check_view(jps, stitched, SceneGenerator(PixelSynth.from_stitched(npz, device="cpu"),
+                                              **KW), jvars)
+
+
+@pytest.mark.filterwarnings("ignore:SceneGenerator")
 @pytest.mark.parametrize("sample_backend,sort_backend",
                          [("xla", "xla"), ("pallas", "pallas")])
 def test_view_step_backends_match_jax(gens, sample_backend, sort_backend):
@@ -172,7 +205,7 @@ def test_view_step_backends_match_jax(gens, sample_backend, sort_backend):
 
 
 @pytest.mark.parametrize("field,value", [("sample_backend", "triton"),
-                                         ("weight_norm", True)])
+                                         ("masks_backend", "triton")])
 def test_pixelsynth_raises_on_lmconv_values_the_port_does_not_implement(field, value):
     cfg = tiny(Config())
     setattr(cfg.model.lmconv, field, value)
