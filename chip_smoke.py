@@ -88,7 +88,18 @@ prints the final ok line):
      seconds and kernel launches; the stitched npz loaded by
      weights.load_stitched_npz renders a finite view in [-1, 1], the
      report has every key of evidence/relay/relay_report.json, and
-     evidence/relay/stitched.npz is unchanged (sha256).
+     evidence/relay/stitched.npz is unchanged (sha256);
+ 11. the other datasets (`phase_datasets`, build/datasets/): stage-2 steps
+     at the Config() widths (batch 12, K3 under the gradient) on a
+     synthetic RealEstate10K tree through make_batch_source("realestate")
+     with the curriculum's set_max_rotation, then on the batches of a
+     5-worker VectorGeneratorBridge over the panorama worlds, and the
+     extract chain (extract_vqvae_dataset -> Custom -> extract_code ->
+     extract_pixcnn_orders: K2, the order kernel) on 24 images;
+ 12. data parallelism (`phase_parallel`): an NCCL group of one process,
+     one stage-2 step through the mesh path held to the step without a
+     group (losses within 1e-5), and a sharded-population view (K1) held
+     to the ungrouped view (codes equal).
 Each path's launch counts (and the wrappers' counts of plain-version
 calls) are zeroed just before it is driven and read just after.  The
 script ends with a `kernels` JSON line, the card's name
@@ -2899,6 +2910,280 @@ def phase_train_evidence():
         raise AssertionError(f"evidence bars missed: {failed}")
 
 
+def _write_re10k_tree(base, n_videos=10, n_frames=12, step_deg=6.0, hw=(180, 320),
+                      seed=0):
+    """A synthetic RealEstate10K tree (the layout data/realestate10k.py
+    reads): video_loc.txt, per-video metadata and frames of `hw` (smooth
+    colour fields plus noise) written as PNG bytes under the dataset's
+    <timestamp>.jpg names -- the card's machine has no PIL to write or
+    read JPEGs, and the reader goes by content."""
+    import numpy as np
+    from pixelsynth_tpu_torch.eval.harness import save_png
+
+    rng = np.random.default_rng(seed)
+    d = os.path.join(base, "frames", "train")
+    os.makedirs(d, exist_ok=True)
+    vids = [f"vid{i}" for i in range(n_videos)]
+    with open(os.path.join(d, "video_loc.txt"), "w") as f:
+        f.write("\n".join(vids) + "\n")
+    yy, xx = np.meshgrid(np.linspace(-1, 1, hw[0]), np.linspace(-1, 1, hw[1]),
+                         indexing="ij")
+    for vi, vid in enumerate(vids):
+        rows = []
+        os.makedirs(os.path.join(d, vid), exist_ok=True)
+        for fi in range(n_frames):
+            ts = 1000 * (fi + 1)
+            r = np.radians(step_deg * fi)
+            R = np.array([[np.cos(r), 0, np.sin(r)], [0, 1, 0], [-np.sin(r), 0, np.cos(r)]])
+            ex = np.hstack([R, [[0.01 * fi], [0.0], [0.02 * fi]]]).reshape(-1)
+            rows.append(" ".join(f"{v:.9g}" for v in
+                                 [ts, 0.9, 1.2, 0.5, 0.5, 0.0, 0.0] + list(ex)))
+            ph = 0.3 * vi + 0.1 * fi
+            img = np.stack([np.sin(3 * xx + ph), np.cos(2 * yy - ph), xx * yy], -1)
+            img = np.clip(0.8 * img + 0.05 * rng.normal(size=img.shape), -1, 1)
+            save_png(os.path.join(d, vid, f"{ts}.jpg"), img.astype(np.float32))
+        with open(os.path.join(d, f"{vid}.txt"), "w") as f:
+            f.write("https://example.com/video\n" + "\n".join(rows) + "\n")
+    return base
+
+
+def phase_datasets(report, steps=3, bridge_steps=2, n_extract=24):
+    """The other datasets at the Config() widths (W=256, batch 12,
+    train_backend "pallas"), under build/datasets/:
+      * a synthetic RealEstate10K tree (frames of 180x320, PNG bytes under
+        .jpg names), `steps` stage-2 G+D steps on batches of
+        make_batch_source("realestate"), the curriculum's
+        set_max_rotation called before them as run_dpr calls it (K2 once
+        and K3 33 times a G step, the order kernel once);
+      * a VectorGeneratorBridge of 5 PanoramaGenerator workers (W=256)
+        feeding `bridge_steps` more steps; its items/s;
+      * the extract chain on `n_extract` RealEstate10K images:
+        extract_vqvae_dataset -> Custom -> extract_code (VQ-VAE encode,
+        cuDNN) -> extract_pixcnn_orders (K2, the order kernel), each
+        tool's seconds, the codes in range and every order a permutation
+        of the 32x32 grid.
+    Each path's launches are zeroed just before it and read just after."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from pixelsynth_tpu_torch.data.custom import Custom
+    from pixelsynth_tpu_torch.data.habitat_bridge import PanoramaGenerator, VectorGeneratorBridge
+    from pixelsynth_tpu_torch.data.realestate10k import RealEstate10K
+    from pixelsynth_tpu_torch.pipeline import PixelSynth
+    from pixelsynth_tpu_torch.tools.extract_code import extract_codes
+    from pixelsynth_tpu_torch.tools.extract_pixcnn_orders import extract_orders
+    from pixelsynth_tpu_torch.tools.extract_vqvae_dataset import extract
+    from pixelsynth_tpu_torch.train.dpr import create_dpr_state, make_dpr_train_step
+    from pixelsynth_tpu_torch.train.loop import make_batch_source
+
+    root = os.path.join(REPO, "build", "datasets")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    tree = _write_re10k_tree(os.path.join(root, "re10k"))
+    log(f"[datasets] RealEstate10K tree: 10 videos x 12 frames of 180x320 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cfg = _train_cfg()
+    cfg.dataset, cfg.train_data_path = "realestate", tree
+    B = cfg.train.batch_size
+    batch_fn = make_batch_source(cfg, "train")
+    tc = cfg.train
+    rot = min(tc.max_rotation + tc.curriculum_step, tc.curriculum_max)   # epoch 50
+    batch_fn.dataset.set_max_rotation(rot)
+    if batch_fn.dataset.max_rotation != rot:
+        raise AssertionError("set_max_rotation did not set the sampler's rotation")
+    t0 = time.perf_counter()
+    batches = [batch_fn() for _ in range(steps)]
+    load_s = (time.perf_counter() - t0) / steps
+    log(f"[datasets] realestate batch {B} at W={cfg.model.W}: {load_s * 1e3:.1f} ms a "
+        f"batch to read and resize (host), rotation {rot}")
+
+    ps = PixelSynth(cfg, device=DEVICE, seed=0, trainable=True)
+    step = make_dpr_train_step(ps, create_dpr_state(ps))
+    gen = torch.Generator(DEVICE).manual_seed(1)
+    n_k3 = _n_k3_convs(ps)
+    secs, losses, launches, peak = _steps_timed(step, [(b, gen) for b in batches])
+    check_no_plain("the RealEstate10K steps")
+    log(f"[datasets] RealEstate10K G+D steps on {card_line()}: ms "
+        f"{json.dumps([round(1e3 * t, 1) for t in secs])}; peak {peak / 2 ** 30:.2f} GiB; "
+        f"launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    if not all(np.isfinite(v) for m in losses for v in m.values()):
+        raise AssertionError("a RealEstate10K step gave a loss that is not finite")
+    k3 = launches["masked_conv"] + launches.get("masked_conv_streamed", 0)
+    if launches["splat_blend"] != steps or k3 != steps * n_k3:
+        raise AssertionError(f"RealEstate10K steps: K2 {launches['splat_blend']}, K3 {k3} "
+                             f"launches in {steps} steps")
+    record_launches(report, launches, ("splat_blend", "masked_conv", "custom_order"),
+                    "the RealEstate10K steps")
+
+    t0 = time.perf_counter()
+    with VectorGeneratorBridge(PanoramaGenerator(W=cfg.model.W, max_rotation=rot),
+                               num_workers=5, seed=cfg.train.seed) as bridge:
+        first = bridge.batch(B, timeout=300)
+        start_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fed = [bridge.batch(B, timeout=300) for _ in range(bridge_steps)]
+        rate = bridge_steps * B / (time.perf_counter() - t0)
+    log(f"[datasets] bridge of 5 PanoramaGenerator workers at W={cfg.model.W}: first "
+        f"batch after {start_s:.1f} s, then {rate:.1f} items/s (host)")
+    if first["input_img"].shape != (B, cfg.model.W, cfg.model.W, 3):
+        raise AssertionError(f"bridge batch shape {first['input_img'].shape}")
+    secs, losses, launches, _ = _steps_timed(step, [(b, gen) for b in fed])
+    check_no_plain("the bridge steps")
+    log(f"[datasets] bridge G+D steps: ms {json.dumps([round(1e3 * t, 1) for t in secs])}; "
+        f"launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    if not all(np.isfinite(v) for m in losses for v in m.values()):
+        raise AssertionError("a bridge step gave a loss that is not finite")
+    record_launches(report, launches, ("splat_blend", "masked_conv", "custom_order"),
+                    "the bridge steps")
+    del ps, step
+    torch.cuda.empty_cache()
+
+    folder = os.path.join(root, "extraction")
+    cfg.train.batch_size = n_extract // 2
+    t0 = time.perf_counter()
+    n = extract(cfg, folder, num_train=n_extract - n_extract // 3, num_val=n_extract // 3)
+    ext_s = time.perf_counter() - t0
+    ds = Custom(folder, W=cfg.model.W)
+    W = cfg.model.W
+    if n != n_extract or len(ds) != n_extract or ds[0]["input_img"].shape != (W, W, 3):
+        raise AssertionError(f"the extraction holds {len(ds)} images, not {n_extract}")
+    t0 = time.perf_counter()
+    codes = extract_codes(cfg, folder, os.path.join(root, "codes.npy"), batch=12,
+                          device=DEVICE)
+    torch.cuda.synchronize()
+    code_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    orders = extract_orders(folder, os.path.join(root, "orders.npy"), batch=12,
+                            device=DEVICE)
+    torch.cuda.synchronize()
+    order_s = time.perf_counter() - t0
+    launches = read_launches()
+    check_no_plain("extract_pixcnn_orders")
+    log(f"[datasets] extract chain on {n_extract} images: extract_vqvae_dataset "
+        f"{ext_s:.2f} s, extract_code {code_s:.2f} s, extract_pixcnn_orders {order_s:.2f} s "
+        f"on {card_line()}; launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    side = W // 8
+    if codes.shape != (n_extract, side, side) or codes.min() < 0 or codes.max() >= 512:
+        raise AssertionError(f"codes {codes.shape} [{codes.min()}, {codes.max()}]")
+    if orders.shape != (n_extract, side * side, 2) or not (
+            np.sort(orders[..., 0] * side + orders[..., 1], 1) == np.arange(side * side)).all():
+        raise AssertionError("an extracted order is not a permutation of the code grid")
+    record_launches(report, launches, ("splat_blend", "custom_order"),
+                    "extract_pixcnn_orders")
+    if not isinstance(batch_fn.dataset, RealEstate10K):
+        raise AssertionError("make_batch_source('realestate') serves no RealEstate10K")
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_parallel(report, B=4, num_samples=16, backend="nccl"):
+    """The mesh path on the card: `initialize_multihost` with NCCL at world
+    size 1 (tcp://localhost, a free port), then
+      * one stage-2 step at the Config() widths (batch B) through the mesh
+        (shard_batch, the step inside `with mesh:`: NCCL all-reduces of the
+        BatchNorm sums, the gradients and the metrics), held to the same
+        step of a trainer from the same seed without a group: every loss
+        within 1e-5 relative;
+      * a sharded-population view (SceneGenerator(mesh=), K1) held to the
+        ungrouped view: every candidate's codes equal, the same best view.
+    Two ranks on one card are not run: NCCL refuses two ranks on one
+    device; the two-rank path is tests/test_torch_parallel.py's (gloo)."""
+    import numpy as np
+    import torch
+    from pixelsynth_tpu_torch.data.synthetic import synthetic_pair_batch
+    from pixelsynth_tpu_torch.geometry.paths import get_rt_from_rot
+    from pixelsynth_tpu_torch.parallel.distributed import initialize_multihost, shutdown
+    from pixelsynth_tpu_torch.parallel.mesh import make_mesh, replicate, shard_batch
+    from pixelsynth_tpu_torch.pipeline import CloudState, PixelSynth
+    from pixelsynth_tpu_torch.scene import SceneGenerator
+    from pixelsynth_tpu_torch.train.dpr import create_dpr_state, make_dpr_train_step
+
+    t0 = time.perf_counter()
+    world = initialize_multihost(f"localhost:{_free_port()}", num_processes=1,
+                                 process_id=0, backend=backend)
+    cfg = _train_cfg(B)
+    mesh = make_mesh(cfg.mesh)
+    log(f"[parallel] {torch.distributed.get_backend()} group of {world} in "
+        f"{time.perf_counter() - t0:.2f} s: {mesh}")
+    try:
+        batch = synthetic_pair_batch(np.random.default_rng(0), B, cfg.model.W)
+        got = {}
+        for tag in ("no group", "mesh"):
+            ps = PixelSynth(cfg, device=DEVICE, seed=0, trainable=True)
+            step = make_dpr_train_step(ps, create_dpr_state(ps))
+            gen = torch.Generator(DEVICE).manual_seed(1)
+            torch.cuda.synchronize()
+            zero_launches()
+            t0 = time.perf_counter()
+            if tag == "mesh":
+                replicate([getattr(ps, t) for t in ps.trees], mesh)
+                with mesh:
+                    m = step(shard_batch(batch, mesh), gen)
+            else:
+                m = step(batch, gen)
+            got[tag] = {k: float(v) for k, v in m.items()}
+            torch.cuda.synchronize()
+            log(f"[parallel] stage-2 step ({tag}), batch {B}: "
+                f"{(time.perf_counter() - t0) * 1e3:.1f} ms (first call)")
+            if tag == "mesh":
+                check_no_plain("the mesh step")
+                record_launches(report, read_launches(), ("splat_blend", "masked_conv",
+                                                          "custom_order"), "the mesh step")
+            del ps, step
+            torch.cuda.empty_cache()
+        errs = {k: abs(got["mesh"][k] - w) / max(abs(w), 1e-30)
+                for k, w in got["no group"].items()}
+        log(f"[parallel] mesh step vs no group, relative error of each loss: "
+            f"{json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}")
+        if not all(np.isfinite(v) for v in got["mesh"].values()) or max(errs.values()) > 1e-5:
+            raise AssertionError("the mesh step's losses differ from the step without a group")
+
+        vcfg = _train_cfg()
+        ps = PixelSynth(vcfg, device=DEVICE, seed=0, with_classifier=True)
+        W = vcfg.model.W
+        img, cams = _view_inputs(W)
+        _, RT = get_rt_from_rot("R", cams["P"], scene_mode=False, rotation=0.3)
+        view_cams = {"K": cams["K"], "Kinv": cams["Kinv"], "P_in": cams["P"],
+                     "Pinv_in": cams["Pinv"], "P_out": RT}
+        views = {}
+        for tag, m in (("no group", None), ("mesh", mesh)):
+            sg = SceneGenerator(ps, num_samples=num_samples, mesh=m)
+            torch.cuda.synchronize()
+            zero_launches()
+            t0 = time.perf_counter()
+            best, out = sg.generate_view(img, view_cams, CloudState.empty(1, W * W, 3, DEVICE),
+                                         None, cams["Pinv"], 2)
+            torch.cuda.synchronize()
+            log(f"[parallel] view, pop {num_samples} ({tag}): "
+                f"{(time.perf_counter() - t0) * 1e3:.1f} ms (first call)")
+            if tag == "mesh":
+                check_no_plain("the sharded-population view")
+                record_launches(report, read_launches(), ("lmconv_up", "lmconv_down",
+                                                          "splat_blend", "custom_order"),
+                                "the sharded-population view")
+            if out["sampled"] is None:
+                raise AssertionError("the view had nothing to sample")
+            views[tag] = (best, out)
+        (b0, o0), (b1, o1) = views["no group"], views["mesh"]
+        same = torch.equal(o0["sampled"], o1["sampled"])
+        best_err = float((b0.float() - b1.float()).abs().max())
+        log(f"[parallel] sharded population vs no group: codes equal {same}, best view "
+            f"max |diff| {best_err:.3g}")
+        if not same or best_err > 1e-5:
+            raise AssertionError("the sharded population differs from the ungrouped one")
+    finally:
+        shutdown()
+
+
 def main(argv):
     try:
         import torch
@@ -2940,6 +3225,8 @@ def main(argv):
         phase_train_lmconv(report)
         phase_train_evidence()
         phase_relay_chain(report)
+        phase_datasets(report)
+        phase_parallel(report)
     log(f"[total] {time.perf_counter() - t0:.1f} s")
     keys = ["name", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

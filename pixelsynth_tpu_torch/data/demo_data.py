@@ -28,32 +28,30 @@ def demo_cameras(aspect_ratio: float = 1.0) -> Dict[str, np.ndarray]:
 
 
 def load_demo_image(path: str, W: int = 256) -> Tuple[np.ndarray, float]:
-    """Image -> ((1, W, W, 3) float32 in [-1, 1], aspect ratio).
+    """Image -> ((1, W, W, 3) float32 in [-1, 1], aspect ratio width /
+    height of the file's image).
 
-    A .npy file holds an (H, W, 3) float image in [-1, 1]; a PNG is read by
-    eval/harness.py `load_png` (no PIL), other formats by PIL, as
-    uint8 / 255 * 2 - 1.  An image
-    that is not W x W is resized bilinearly with torch; one that is, is
-    taken as it is (as PIL's resize to the same size does)."""
-    from pixelsynth_tpu_torch.eval.harness import is_png, load_png
+    An image file goes through data/realestate10k.py (`decode_image_u8`:
+    a PNG without PIL, other formats through PIL; `resize_u8`: the uint8
+    image resized by antialiased bilinear interpolation, within one level
+    of the JAX demo's PIL resize, and left as it is when already W x W;
+    then / 255 * 2 - 1).  A .npy file holds an (H, W, 3) float image in
+    [-1, 1], resized the same way in float when it is not W x W."""
+    from pixelsynth_tpu_torch.data.realestate10k import decode_image_u8, resize_u8
 
-    if path.endswith(".npy"):
-        arr = np.load(path).astype(np.float32)
-    else:
-        if is_png(path):
-            u8 = load_png(path)[..., :3]
-        else:   # JPG and the rest: through PIL, where it is installed
-            from PIL import Image
-
-            u8 = np.asarray(Image.open(path).convert("RGB"))
-        arr = u8.astype(np.float32) / 255.0 * 2.0 - 1.0
+    if not path.endswith(".npy"):
+        u8 = decode_image_u8(path)
+        arr = np.asarray(resize_u8(u8, W), np.float32) / 255.0 * 2.0 - 1.0
+        return arr[None], u8.shape[1] / u8.shape[0]
+    arr = np.load(path).astype(np.float32)
     ratio = arr.shape[1] / arr.shape[0]
     if arr.shape[:2] != (W, W):
         import torch
         import torch.nn.functional as F
 
         x = torch.as_tensor(arr).permute(2, 0, 1)[None]
-        x = F.interpolate(x, size=(W, W), mode="bilinear", align_corners=False)
+        x = F.interpolate(x, size=(W, W), mode="bilinear", antialias=True,
+                          align_corners=False)
         arr = x[0].permute(1, 2, 0).numpy()
     return arr[None], ratio
 

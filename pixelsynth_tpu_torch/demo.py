@@ -80,6 +80,7 @@ def load_model(ckpt: str = None, cfg: Config = None, *, device="cuda",
         return PixelSynth.from_stitched(ckpt, device=device)
     from pixelsynth_tpu_torch.checkpoint import STATE, CheckpointManager
     from pixelsynth_tpu_torch.pipeline import build_modules, build_pixelcnn
+    from pixelsynth_tpu_torch.utils.devices import put_variables
     from pixelsynth_tpu_torch.weights import serving_state_dicts
 
     dpr = os.path.join(ckpt, "dpr")
@@ -93,7 +94,8 @@ def load_model(ckpt: str = None, cfg: Config = None, *, device="cuda",
     cfg = mgr.load_config()
     cfg.refresh_splat_perf_knobs()
     state = mgr.restore()
-    saved = {**state["gen_vars"], **state["frozen_vars"], "disc": state["disc_vars"]}
+    saved = put_variables({**state["gen_vars"], **state["frozen_vars"],
+                           "disc": state["disc_vars"]}, device=device)
     trained = build_modules(cfg, trainable=True)
     trained["pixelcnn"] = build_pixelcnn(cfg, trainable=True)
     for name, module in trained.items():

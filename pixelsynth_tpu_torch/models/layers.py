@@ -34,6 +34,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from pixelsynth_tpu_torch.parallel.mesh import active_mesh, draw_rows, sum_over_ranks
+
 
 def _t(a, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(np.asarray(a, np.float32)).to(like.device)
@@ -250,12 +252,24 @@ class Dense(FlaxNamed):
         return {"kernel": _n(self.weight.T), "bias": _n(self.bias)}
 
 
-def batch_moments(x: torch.Tensor):
+def batch_moments(x: torch.Tensor, *, clamp: bool = True):
     """Per-channel mean and biased variance of NCHW x over (N, H, W), as
-    Flax's fast variance: max(E[x^2] - E[x]^2, 0)."""
-    mean = x.mean((0, 2, 3))
-    var = torch.clamp((x * x).mean((0, 2, 3)) - mean * mean, min=0)
-    return mean, var
+    Flax's fast variance: max(E[x^2] - E[x]^2, 0) (unclamped with
+    clamp=False).  Inside an active mesh (parallel/mesh.py) the moments are
+    the global batch's: the per-rank sums of x and x^2 are all-reduced
+    through an autograd-aware all-reduce, so the backward crosses ranks as
+    GSPMD's does."""
+    mesh = active_mesh()
+    if mesh is None:
+        mean = x.mean((0, 2, 3))
+        ex2 = (x * x).mean((0, 2, 3))
+    else:
+        n = (x.numel() // x.shape[1]) * mesh.world_size
+        sums = sum_over_ranks(torch.stack([x.sum((0, 2, 3)), (x * x).sum((0, 2, 3))]),
+                              autograd=True)
+        mean, ex2 = sums[0] / n, sums[1] / n
+    var = ex2 - mean * mean
+    return mean, (torch.clamp(var, min=0) if clamp else var)
 
 
 class BatchNorm(FlaxNamed):
@@ -314,8 +328,9 @@ class BatchNorm(FlaxNamed):
 
 class SyncBatchNorm(FlaxNamed):
     """SyncBatchNorm (layers.py:122-150): a named wrapper of one Flax
-    nn.BatchNorm(momentum=0.9).  On one card the batch statistics are the
-    whole batch's."""
+    nn.BatchNorm(momentum=0.9).  Its batch statistics are the whole
+    batch's: on one process the batch's, and across processes, inside an
+    active mesh, the global batch's (`batch_moments`)."""
 
     def __init__(self, c, trainable=False):
         super().__init__()
@@ -346,8 +361,7 @@ class StandingStatsBN(FlaxNamed):
     def forward(self, x):
         m, var = self.stored_mean, self.stored_var
         if self.training:
-            m = x.mean((0, 2, 3))
-            var = (x * x).mean((0, 2, 3)) - m * m
+            m, var = batch_moments(x, clamp=False)
             with torch.no_grad():
                 k = self.momentum
                 self.stored_mean.copy_(self.stored_mean * (1 - k) + m * k)
@@ -412,8 +426,8 @@ class NoiseBN(FlaxNamed):
             # drawn where the generator lives (a CPU generator gives a model
             # on the card the CPU's draws)
             dev = x.device if gen is None else gen.device
-            noise = torch.randn((x.shape[0], self.noise_sz), generator=gen,
-                                device=dev).to(x.device) * noise_scale
+            noise = draw_rows(torch.randn, (x.shape[0], self.noise_sz), generator=gen,
+                              device=dev).to(x) * noise_scale
         gain = 1.0 + noise @ wg
         bias = noise @ wb
         return h * gain[:, :, None, None] + bias[:, :, None, None]

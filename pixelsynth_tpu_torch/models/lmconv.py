@@ -37,6 +37,7 @@ from pixelsynth_tpu_torch.ops.conv_pack import prepare_taps
 from pixelsynth_tpu_torch.ops.masked_conv_kernel import (
     k3_layer_conv, kernel_width, locally_masked_conv2d_kernel_vjp, raw_mask,
 )
+from pixelsynth_tpu_torch.parallel.mesh import draw_rows
 
 BACKENDS = ("xla", "pallas")
 
@@ -206,8 +207,9 @@ class GatedResnet(FlaxNamed):
         x = concat_elu(x)
         if self.dropout_prob > 0 and self.training:
             # Flax nn.Dropout: keep with 1 - p, scaled by 1 / (1 - p); the
-            # draw comes from `gen`
-            keep = torch.rand(x.shape, generator=gen, device=x.device) >= self.dropout_prob
+            # draw comes from `gen` (the global batch's, sliced, in a mesh)
+            keep = draw_rows(torch.rand, x.shape, generator=gen,
+                             device=x.device) >= self.dropout_prob
             x = torch.where(keep, x / (1.0 - self.dropout_prob), 0.0)
         x = self.LMConv_1(x, mask)
         a_out, b_out = torch.chunk(x, 2, dim=-1)

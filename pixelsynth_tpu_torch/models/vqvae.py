@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from pixelsynth_tpu_torch.models.layers import Conv, ConvTranspose, FlaxNamed
+from pixelsynth_tpu_torch.parallel.mesh import sum_over_ranks
 
 
 class Quantize(FlaxNamed):
@@ -54,10 +55,14 @@ class Quantize(FlaxNamed):
         return x + (q - x).detach(), diff, idx.reshape(x.shape[:-1])
 
     def _ema_update(self, flat, idx):
+        """The EMA of the assignment counts and sums; inside an active mesh
+        (parallel/mesh.py) the sums are the global batch's (all-reduced),
+        as the reference's all_reduce (vqvae.py:57-58)."""
         d = self.decay
         onehot_sum = torch.bincount(idx, minlength=self.n_embed).to(flat.dtype)
         embed_sum = torch.zeros((self.n_embed, self.dim), dtype=flat.dtype,
                                 device=flat.device).index_add_(0, idx, flat).T
+        onehot_sum, embed_sum = sum_over_ranks(onehot_sum), sum_over_ranks(embed_sum)
         cs = self.cluster_size * d + onehot_sum * (1 - d)
         ea = self.embed_avg * d + embed_sum * (1 - d)
         n = cs.sum()

@@ -6,7 +6,11 @@ runs on all candidates.  The JAX `while_loop` becomes a Python loop that
 checks `t < n_bg` once per forward (one small device->host read).  Random
 draws come from an explicit `torch.Generator`; they are not JAX's bits, so
 the tests hold the sampler by exactness properties (argmax chains at low
-temperature, an analytic two-cell joint), not by equal samples.
+temperature, an analytic two-cell joint), not by equal samples.  Inside an
+active mesh (parallel/mesh.py) the population is sharded over the ranks:
+each draw is the whole population's, sliced to this rank's candidates,
+and the loop runs until every rank's candidates are filled, so a
+candidate's codes do not depend on the world size.
 """
 
 from __future__ import annotations
@@ -15,10 +19,12 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from pixelsynth_tpu_torch.parallel.mesh import any_over_ranks, draw_rows, max_over_ranks
+
 
 def _categorical(logits: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
     """Sample the last axis by the Gumbel-max trick."""
-    u = torch.rand(logits.shape, generator=gen, device=logits.device)
+    u = draw_rows(torch.rand, logits.shape, generator=gen, device=logits.device)
     u = torch.clamp(u, min=1e-20, max=1.0 - 1e-7)
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 
@@ -58,7 +64,7 @@ def ar_sample(logits_fn: Callable, codes: torch.Tensor, order: torch.Tensor,
     path is used when present."""
     B, H, W = codes.shape
     positions, n_bg = sample_positions(order, bg_ds)
-    steps = int(n_bg.max()) if max_steps is None else int(max_steps)
+    steps = max_over_ranks(int(n_bg.max())) if max_steps is None else int(max_steps)
     cur, filled = _initial_state(codes, positions, n_bg)
     at = getattr(logits_fn, "at", None)
     for t in range(steps):
@@ -114,7 +120,7 @@ def ar_sample_speculative(logits_fn: Callable, codes: torch.Tensor,
     dvals = torch.zeros((B, S), dtype=torch.long, device=dev)
     qp = torch.zeros((B, S + 1, num_classes), device=dev)
     n_fwd = 0
-    while bool((t < n_bg).any()):
+    while any_over_ranks(bool((t < n_bg).any())):
         idx = torch.clamp(t[:, None] + torch.arange(G, device=dev)[None], max=HW - 1)
         probe = torch.gather(positions, 1, idx)                 # (B, G)
         draft_ok = (t[:, None] + jS) < n_bg[:, None]
@@ -129,7 +135,7 @@ def ar_sample_speculative(logits_fn: Callable, codes: torch.Tensor,
         p_at_d = torch.gather(p[:, :S], -1, dvals[..., None])[..., 0]
         q_at_d = torch.gather(qp[:, :S], -1, dvals[..., None])[..., 0]
         ratio = torch.clamp(p_at_d / torch.clamp(q_at_d, min=eps), max=1.0)
-        u = torch.rand((B, S), generator=gen, device=dev)
+        u = draw_rows(torch.rand, (B, S), generator=gen, device=dev)
         accept = (u < ratio) & (q_at_d > eps) & draft_ok
         A = torch.cumprod(accept.long(), 1).sum(1)             # (B,)
 

@@ -21,10 +21,12 @@ from pixelsynth_tpu_torch.geometry.paths import get_rt_from_rot, num_split_for_d
 from pixelsynth_tpu_torch.models.classifier import (
     classifier_entropy, preprocess_for_classifier,
 )
+from pixelsynth_tpu_torch.parallel.mesh import Mesh, all_gather_rows, data_sharding
 from pixelsynth_tpu_torch.pipeline import CloudState, PixelSynth, refuse_what_jax_cannot
 from pixelsynth_tpu_torch.sampling import (
     ar_sample, ar_sample_speculative, d_fake_score, rank_candidates,
 )
+from pixelsynth_tpu_torch.utils.devices import put_variables
 
 
 def _tile(x: torch.Tensor, s: int) -> torch.Tensor:
@@ -78,13 +80,21 @@ class SceneGenerator:
       (the reference: the refined image) or "composite" (the
       pre-refinement composite of splat and VQ-decoded outpaint).
     anchor_input: reset the carried image to the true input when the walk
-      renders at the input pose."""
+      renders at the input pose.
+    mesh: a parallel/mesh.py Mesh with a process group (JAX's `mesh`,
+      scene.py:51-58): the weights are replicated from rank 0, and each
+      rank samples and decodes its contiguous slice of the B*S candidates
+      (B*S must divide by the world size), drawing the whole population's
+      noise and keeping its slice (parallel/mesh.py `draw_rows`); the ranks then
+      all-gather the codes, composites and images before the
+      discriminator and classifier re-rank them, so every rank returns
+      the same best view, and the candidates are those of one process."""
 
     def __init__(self, ps: PixelSynth, *, num_samples: Optional[int] = None,
                  temperature: Optional[float] = None,
                  cloud_capacity: int = 4 * 65536,
                  noise_mode: Optional[str] = None, carry: Optional[str] = None,
-                 anchor_input: Optional[bool] = None):
+                 anchor_input: Optional[bool] = None, mesh: Optional[Mesh] = None):
         refuse_what_jax_cannot(ps.cfg, scene=True)
         sc = ps.cfg.sample
         self.ps = ps
@@ -105,6 +115,10 @@ class SceneGenerator:
                           "re-ranking uses the discriminator score only",
                           stacklevel=2)
         self.timer = _no_timer
+        self.mesh = mesh if mesh is not None and mesh.distributed else None
+        if self.mesh is not None:
+            put_variables([getattr(ps, t) for t in ps.trees], self.mesh)
+            put_variables(getattr(ps, "packed", None), self.mesh)
 
     def _gen(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(int(seed))
@@ -135,24 +149,32 @@ class SceneGenerator:
         B = img.shape[0]
         stats = sampled = None
         if bool((bg_ds >= 1.0 - 1e-6).any()):
-            with T("ar_fill"):
+            # the population: all B*S candidates, or this rank's slice of
+            # them in a mesh (gathered after the decode)
+            if self.mesh is not None:
+                rows = data_sharding(self.mesh, B * S)
+                pop, in_mesh = (lambda x: _tile(x, S)[rows]), self.mesh
+            else:
+                pop, in_mesh = (lambda x: _tile(x, S)), contextlib.nullcontext()
+            with in_mesh, T("ar_fill"):
                 l = ps.cfg.model.lmconv
-                logits_fn = ps.make_sampling_logits_fn(_tile(masks, S))
+                logits_fn = ps.make_sampling_logits_fn(pop(masks))
                 spec = ps.cfg.sample.speculative
-                args = (logits_fn, _tile(codes, S), _tile(order, S),
-                        _tile(bg_ds, S), gen)
+                args = (logits_fn, pop(codes), pop(order), pop(bg_ds), gen)
                 kw = dict(num_classes=l.num_classes, temperature=self.temperature)
                 if spec > 0:
                     sampled, stats = ar_sample_speculative(*args, spec=spec,
                                                            return_stats=True, **kw)
                 else:
                     sampled = ar_sample(*args, **kw)
-            with T("decode"):
+            with in_mesh, T("decode"):
                 decoded = ps.vq_decode(sampled)
-                combined = ps.combine(_tile(gen_fs, S), decoded, _tile(bg, S))
-                gen_imgs = ps.decode_image(combined, _tile(bg, S),
+                combined = ps.combine(pop(gen_fs), decoded, pop(bg))
+                gen_imgs = ps.decode_image(combined, pop(bg),
                                            noise_scale=self._noise_scale,
                                            gen=noise_gen)
+                sampled, combined, gen_imgs = (all_gather_rows(x) for x in
+                                               (sampled, combined, gen_imgs))
             with T("rank"):
                 d_scores = d_fake_score(ps.disc, gen_imgs, _tile(img, S))
                 if ps.classifier is not None:

@@ -3,16 +3,16 @@ pixelsynth_tpu/tools/export_habitat_shards.py).
 
 The reference renders MP3D / Replica pairs on the fly from habitat-sim
 (data/create_rgb_dataset.py:90-439).  The JAX package pre-renders them
-into .npz shards instead; habitat-sim is not installed here, so the port
-writes the synthetic shards only (`--synthetic`), byte for byte the JAX
-package's at the same seed:
+into .npz shards instead.  The synthetic shards (`--synthetic`) are byte
+for byte the JAX package's at the same seed:
   * world="plane": textured planes under habitat's camera model (K from a
     90-degree HFOV, the second view's rotation jittered by at most
     max_rotation degrees an Euler axis, utils/jitter.py:6-17);
   * world="pano": closed panorama worlds with exact geometry and GT depth
     (data/panorama.py), the data of the relay chain (tools/run_relay.py).
-`export_habitat` and `make_habitat_env` refuse, as the JAX package's do
-where habitat is missing.
+`export_habitat` renders pairs from habitat-sim where it is installed
+(`make_habitat_env` refuses otherwise), and the live bridge
+(data/habitat_bridge.py) reuses its `render_habitat_pair`.
 
 Shard layout: images (N, 2, W, W, 3) uint8; P, Pinv (N, 2, 4, 4) float32;
 K, Kinv (4, 4) float32; pano worlds add depth (N, 2, W, W) float16.
@@ -103,8 +103,10 @@ def synthesize_shard(rng: np.random.Generator, n: int, W: int,
 
 
 def make_habitat_env(scenes_config: str):
-    """A habitat.Env and its K, where habitat-sim and habitat-lab are
-    installed; SystemExit otherwise (the JAX package's message)."""
+    """-> (habitat.Env, K from the depth sensor's HFOV).  habitat is
+    imported here, so the exporter and the live bridge's worker processes
+    (data/habitat_bridge.py) can both call it; SystemExit where habitat-sim
+    or habitat-lab is missing."""
     try:
         import habitat  # noqa: F401
         import quaternion  # noqa: F401
@@ -112,16 +114,64 @@ def make_habitat_env(scenes_config: str):
         raise SystemExit(
             f"habitat-sim/habitat-lab not installed ({e}); run this in a "
             "habitat environment, or use --synthetic for fixture shards")
-    raise SystemExit("the habitat-sim exporter is not ported; use --synthetic")
+    import habitat
+
+    config = habitat.get_config(scenes_config)
+    env = habitat.Env(config=config)
+    return env, hfov_intrinsics(config.SIMULATOR.DEPTH_SENSOR.HFOV)
+
+
+def render_habitat_pair(env, rng: np.random.Generator, max_rotation: float):
+    """One (input, output) view pair at a random navigable point: a
+    uniform-yaw start, the second rotation Euler-jittered by at most
+    `max_rotation` degrees an axis (create_rgb_dataset.py:231-333,
+    utils/jitter.py:6-17).  Returns (images (2, W, W, 3) uint8, P (2, 4, 4),
+    Pinv (2, 4, 4))."""
+    import quaternion
+
+    pos = np.array(env.sim.sample_navigable_point())
+    yaw = rng.uniform(0, 2 * np.pi)
+    rot0 = [0, np.sin(yaw / 2), 0, np.cos(yaw / 2)]
+    e = (quaternion.as_euler_angles(quaternion.from_float_array(rot0))
+         + _euler_jitter(rng, max_rotation))
+    views = [rot0, quaternion.as_float_array(quaternion.from_euler_angles(e)).tolist()]
+    images, Ps, Pinvs = [], [], []
+    for rot in views:
+        obs = env.sim.get_observations_at(position=pos, rotation=rot)
+        images.append(obs["rgb"][..., :3])
+        st = env.sim.get_agent_state()
+        P, Pinv = camera_matrices(np.array(st.position),
+                                  quaternion.as_rotation_matrix(st.rotation))
+        Ps.append(P)
+        Pinvs.append(Pinv)
+    return np.stack(images), np.stack(Ps), np.stack(Pinvs)
 
 
 def export_habitat(out_dir: str, *, scenes_config: str, num_pairs: int,
                    shard_size: int, W: int, max_rotation: float, seed: int,
                    split: str) -> int:
-    """Pairs rendered by habitat-sim: refused where habitat is missing
-    (`make_habitat_env`)."""
-    make_habitat_env(scenes_config)
-    return 0
+    """Pairs rendered by habitat-sim (`make_habitat_env`), one episode reset
+    every 100 pairs (create_rgb_dataset.py:122-148, 232-234), in shards of
+    `shard_size`.  Returns the number of shards."""
+    env, K = make_habitat_env(scenes_config)
+    rng = np.random.default_rng(seed)
+    Kinv = np.linalg.inv(K).astype(np.float32)
+    os.makedirs(out_dir, exist_ok=True)
+    written = shard_idx = 0
+    while written < num_pairs:
+        n = min(shard_size, num_pairs - written)
+        images = np.zeros((n, 2, W, W, 3), np.uint8)
+        Ps = np.zeros((n, 2, 4, 4), np.float32)
+        Pinvs = np.zeros((n, 2, 4, 4), np.float32)
+        for i in range(n):
+            if (written + i) % 100 == 0:
+                env.reset()
+            images[i], Ps[i], Pinvs[i] = render_habitat_pair(env, rng, max_rotation)
+        np.savez(os.path.join(out_dir, f"{split}_{shard_idx:05d}.npz"),
+                 images=images, P=Ps, Pinv=Pinvs, K=K, Kinv=Kinv)
+        written += n
+        shard_idx += 1
+    return shard_idx
 
 
 def export_synthetic(out_dir: str, *, num_pairs: int, shard_size: int, W: int,

@@ -15,6 +15,13 @@ torch.optim.Adam places eps as optax.adam does: lr * m_hat /
 spectral statistics are updated in place by its train forward (the JAX
 step merges the same updates after its optimizer step).  The VQ-VAE and
 the VGG19 stay frozen.
+
+Inside an active mesh (parallel/mesh.py: one process a device, the batch
+sharded over them) G's and D's gradients are each averaged over the ranks
+after their backward, the BatchNorm moments and the NoiseBN draws are the
+global batch's, and the metrics are their means over the ranks: N ranks
+on a batch split N ways take the step one process takes on the whole
+batch.  Its `psnr_std` metric is the mean of the ranks' values.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import torch
 from pixelsynth_tpu_torch.models.losses import (
     discriminator_scores, hinge_d_loss, hinge_g_loss,
 )
+from pixelsynth_tpu_torch.parallel.mesh import all_reduce_mean, mean_over_ranks
 from pixelsynth_tpu_torch.pipeline import PixelSynth
 from pixelsynth_tpu_torch.train.schedulers import Schedule, niter_schedule
 
@@ -140,9 +148,12 @@ def create_dpr_state(ps: PixelSynth, *, steps_per_epoch: int = 500) -> DPRTrainS
 
 def _grads(loss, params):
     """d loss / d params, zeros where a parameter does not reach the loss
-    (as jax.grad gives)."""
+    (as jax.grad gives); inside an active mesh, their mean over the ranks
+    (each rank's loss is the mean over its shard of the batch, so this is
+    the gradient of the global batch's loss)."""
     gs = torch.autograd.grad(loss, params, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g for g, p in zip(gs, params)]
+    return all_reduce_mean([torch.zeros_like(p) if g is None else g
+                            for g, p in zip(gs, params)])
 
 
 def make_dpr_train_step(ps: PixelSynth, state: DPRTrainState, *,
@@ -188,7 +199,7 @@ def make_dpr_train_step(ps: PixelSynth, state: DPRTrainState, *,
         metrics["G_total"] = g_total.detach()
         metrics["D_total"] = d_losses["Total Loss"].detach()
         state.step += 1
-        return metrics
+        return mean_over_ranks(metrics)
 
     return step
 
@@ -204,6 +215,6 @@ def make_dpr_eval_step(ps: PixelSynth, *, train_ar: bool = True,
         _, losses, _, _ = ps.train_forward(ps.batch_to_device(batch), gen=gen,
                                            train_ar=train_ar, train=False,
                                            noise_scale=noise_scale)
-        return losses
+        return mean_over_ranks(losses)
 
     return step

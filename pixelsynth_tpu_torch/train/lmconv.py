@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from pixelsynth_tpu_torch.models.lmconv import LMPixelCNN
 from pixelsynth_tpu_torch.ops.masked_conv_kernel import prepare_mask
+from pixelsynth_tpu_torch.parallel.mesh import mean_over_ranks
 from pixelsynth_tpu_torch.pipeline import softmax_xent
 from pixelsynth_tpu_torch.train.dpr import Adam, _grads
 from pixelsynth_tpu_torch.train.schedulers import step_schedule
@@ -125,6 +126,7 @@ def make_lmconv_train_step(model: LMPixelCNN, state: LMTrainState) -> Callable:
                     e.copy_(e * d + p * (1 - d))
         state.step += 1
         ce = loss.detach()
-        return {"ce": ce, "bpd": ce / math.log(2.0), "grad_norm": gnorm.detach()}
+        return mean_over_ranks({"ce": ce, "bpd": ce / math.log(2.0),
+                                "grad_norm": gnorm.detach()})
 
     return step

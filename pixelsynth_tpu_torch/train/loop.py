@@ -8,13 +8,27 @@ run_dpr follows train_dpr.py:91-333 of the reference: epochs of
 degrees every curriculum_every epochs), a validation pass on a disjoint
 stream whose PSNR picks the best checkpoint, rolling + best + periodic
 checkpoints with the latest/ slot, and resume from the newest step.
-SIGTERM / SIGINT set a flag; the loop checkpoints and stops.  The port
-reads two sources of batches: `dataset="synthetic"` and the exported
-habitat shards ("mp3d" / "replica" / "habitat"); RealEstate10K, custom
-folders and the live habitat bridge are not ported."""
+SIGTERM / SIGINT set a flag; the loop checkpoints and stops.
+
+`make_batch_source` serves every dataset of the JAX package: "synthetic",
+the exported habitat shards ("mp3d" / "replica" / "habitat"),
+"realestate" (data/realestate10k.py, with the rotation curriculum's
+`set_max_rotation` hook), "custom" extractions (data/custom.py) and the
+live simulator bridge "habitat_live" (data/habitat_bridge.py).
+
+With `use_mesh` (the default) the three training loops run the JAX package's
+mesh path across processes (parallel/mesh.py) where a process group
+exists (parallel/distributed.py `initialize_multihost`, or torchrun):
+every rank builds the same batch source, replicates rank 0's weights,
+takes its shard of each batch and steps inside the mesh (gradients,
+BatchNorm moments, codebook EMA and row draws made global); validation
+runs on the global val batch (the ranks' means); rank 0 alone logs,
+checkpoints and writes previews.  Without a group they run as on one
+process."""
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import signal
@@ -26,6 +40,9 @@ import torch
 
 from pixelsynth_tpu_torch.checkpoint import CheckpointManager
 from pixelsynth_tpu_torch.config import Config
+from pixelsynth_tpu_torch.parallel.mesh import (
+    any_over_ranks, make_mesh, mean_over_ranks, replicate, shard_batch,
+)
 from pixelsynth_tpu_torch.pipeline import PixelSynth, build_pixelcnn, build_vqvae
 from pixelsynth_tpu_torch.train.dpr import (
     create_dpr_state, make_dpr_eval_step, make_dpr_train_step,
@@ -62,35 +79,98 @@ class PreemptionGuard:
 
 
 def make_batch_source(cfg: Config, split: str = "train") -> Callable[[], Dict]:
-    """Batches of `cfg.dataset` (the reference's options/options.py:21-113),
-    numpy, with the seed cfg.train.seed for the train split and that plus
-    10000 for the others: "synthetic" (data/synthetic.py); "mp3d",
-    "replica" or "habitat", the exported shards under
-    `cfg.train_data_path` (data/habitat.py; the split's own shards where
-    there are any).  "realestate", "custom" and the live simulator bridge
-    "habitat_live" are not ported and raise."""
+    """Batches of `cfg.dataset` (the reference's options/options.py:21-113)
+    as dicts of numpy arrays, with the JAX package's seeds:
+      * "synthetic" (data/synthetic.py), seed cfg.train.seed, plus 10000
+        off the train split;
+      * "mp3d", "replica" or "habitat": the exported shards under
+        `cfg.train_data_path` (data/habitat.py; the split's own shards
+        where there are any), seeds as "synthetic";
+      * "realestate": RealEstate10K under `cfg.train_data_path`, seed
+        cfg.train.seed for every split (the 80/20 split keeps val apart);
+        `fn.dataset` is the sampler, whose `set_max_rotation` run_dpr
+        calls each epoch;
+      * "habitat_live": a `VectorGeneratorBridge` of 5 workers over
+        habitat-sim (`cfg.train_data_path` a scenes config) or, for ""
+        or "panorama", the procedural panorama worlds; seeds as
+        "synthetic"; `fn.bridge` is the bridge (close() it);
+      * "custom": random items of the extraction `cfg.train_data_path`
+        (data/custom.py), seed cfg.train.seed.
+    fn.split names the split (not for "custom")."""
     seed = cfg.train.seed + (10_000 if split != "train" else 0)
+    B = cfg.train.batch_size
     if cfg.dataset == "synthetic":
         rng = np.random.default_rng(seed)
 
         def fn():
             from pixelsynth_tpu_torch.data.synthetic import synthetic_pair_batch
 
-            return synthetic_pair_batch(rng, cfg.train.batch_size, cfg.model.W)
+            return synthetic_pair_batch(rng, B, cfg.model.W)
 
+    elif cfg.dataset == "realestate":
+        from pixelsynth_tpu_torch.data.realestate10k import RealEstate10K
+
+        ds = RealEstate10K(split, data_path=cfg.train_data_path, W=cfg.model.W,
+                           max_rotation=cfg.train.max_rotation, seed=cfg.train.seed)
+
+        def fn():
+            return ds.batch(B)
+
+        fn.dataset = ds
     elif cfg.dataset in ("mp3d", "replica", "habitat"):
         from pixelsynth_tpu_torch.data.habitat import PreRenderedEpisodes
 
         episodes = PreRenderedEpisodes(cfg.train_data_path, seed=seed, split=split)
 
         def fn():
-            return episodes.batch(cfg.train.batch_size)
+            return episodes.batch(B)
 
+    elif cfg.dataset == "habitat_live":
+        from pixelsynth_tpu_torch.data.habitat_bridge import (
+            HabitatLivePairGenerator, PanoramaGenerator, VectorGeneratorBridge,
+        )
+
+        if cfg.train_data_path in ("", "panorama"):
+            factory = PanoramaGenerator(W=cfg.model.W, max_rotation=cfg.train.max_rotation)
+        else:
+            factory = HabitatLivePairGenerator(cfg.train_data_path,
+                                               max_rotation=cfg.train.max_rotation)
+        bridge = VectorGeneratorBridge(factory, num_workers=5, seed=seed)
+
+        def fn():
+            return bridge.batch(B)
+
+        fn.bridge = bridge
+    elif cfg.dataset == "custom":
+        from pixelsynth_tpu_torch.data.custom import Custom, collate
+
+        ds = Custom(cfg.train_data_path, W=cfg.model.W)
+        rng = np.random.default_rng(cfg.train.seed)
+
+        def fn():
+            idx = rng.integers(len(ds), size=B)
+            return collate([ds[int(i)] for i in idx])
+
+        return fn
     else:
-        raise NotImplementedError(
-            f"dataset={cfg.dataset!r}: the port's trainer reads the synthetic "
-            "source and exported habitat shards (mp3d, replica, habitat) only")
+        raise ValueError(f"unknown dataset {cfg.dataset}")
+    fn.split = split
     return fn
+
+
+def _mesh_of(cfg: Config, use_mesh: bool, device):
+    """(mesh, the context its steps run in): the mesh over the process
+    group where `use_mesh` and a group exist, else (None, a null
+    context)."""
+    if use_mesh:
+        mesh = make_mesh(cfg.mesh, device=device)
+        if mesh.distributed:
+            return mesh, mesh
+    return None, contextlib.nullcontext()
+
+
+def _shard(batch, mesh):
+    return batch if mesh is None else shard_batch(batch, mesh)
 
 
 DPR_TREES = ("unet", "projector", "vqvae", "pixelcnn", "disc")
@@ -99,10 +179,12 @@ DPR_TREES = ("unet", "projector", "vqvae", "pixelcnn", "disc")
 def run_dpr(cfg: Config, workdir: str, *, epochs: Optional[int] = None,
             iters_per_epoch: Optional[int] = None, val_iters: Optional[int] = None,
             log_fn: Callable[[str], None] = print, train_ar: bool = True,
-            init_state: Optional[Dict[str, Dict]] = None,
+            init_state: Optional[Dict[str, Dict]] = None, use_mesh: bool = True,
             device="cuda") -> Dict[str, float]:
     """Stage-2 training driver.  Returns the last epoch's metrics.
 
+    Each epoch first sets the rotation curriculum's angle on a dataset that
+    takes it (`fn.dataset.set_max_rotation`, train_dpr.py:91-98).
     Validation draws `val_iters` batches (cfg.train.val_iters by default)
     from the val stream; its mean PSNR picks the best checkpoint
     (train_dpr.py:164-218, 316-322).  train_ar=False is the reference's
@@ -111,7 +193,8 @@ def run_dpr(cfg: Config, workdir: str, *, epochs: Optional[int] = None,
     trees of DPR_TREES) then loads over the trees it names -- the JAX
     driver's `init_vars` (loop.py:157-179), by which the relay chains its
     stages (the trained VQ-VAE, the stage-3 prior, a pretrain's trees).
-    An unknown tree raises KeyError."""
+    An unknown tree raises KeyError.  use_mesh: the mesh path across
+    processes (module docstring)."""
     guard = PreemptionGuard()
     ps = PixelSynth(cfg, device=device, seed=cfg.train.seed, trainable=True)
     if init_state:
@@ -120,6 +203,10 @@ def run_dpr(cfg: Config, workdir: str, *, epochs: Optional[int] = None,
             raise KeyError(f"init_state has unknown trees: {sorted(unknown)}")
         for name, sd in init_state.items():
             getattr(ps, name).load_state_dict(sd)
+    mesh, in_mesh = _mesh_of(cfg, use_mesh, ps.device)
+    main = mesh is None or mesh.is_main
+    if mesh is not None:
+        replicate([getattr(ps, t) for t in ps.trees], mesh)
     state = create_dpr_state(ps)
     step_fn = make_dpr_train_step(ps, state, train_ar=train_ar)
     eval_fn = make_dpr_eval_step(ps, train_ar=train_ar)
@@ -130,7 +217,8 @@ def run_dpr(cfg: Config, workdir: str, *, epochs: Optional[int] = None,
     if ckpt.latest_step() is not None:
         state.load_state_dict(ckpt.restore(map_location=ps.device))
         start_epoch = int(ckpt.latest_step())
-        log_fn(f"resumed from epoch {start_epoch}")
+        if main:
+            log_fn(f"resumed from epoch {start_epoch}")
 
     batch_fn = make_batch_source(cfg, "train")
     val_batch_fn = make_batch_source(cfg, "val")
@@ -141,32 +229,39 @@ def run_dpr(cfg: Config, workdir: str, *, epochs: Optional[int] = None,
     gen = torch.Generator(ps.device).manual_seed(tc.seed + 1)
     metrics: Dict[str, float] = {}
     for epoch in range(start_epoch, epochs):
-        # rotation curriculum (train_dpr.py:91-98); the synthetic source
-        # has a fixed rotation, so it is logged only
+        # rotation curriculum (train_dpr.py:91-98)
         rot = min(tc.max_rotation + (epoch // tc.curriculum_every) * tc.curriculum_step,
                   tc.curriculum_max)
+        if hasattr(batch_fn, "dataset"):
+            batch_fn.dataset.set_max_rotation(rot)
         t0 = time.time()
         m: Dict = {}
-        for _ in range(iters):
-            m = step_fn(batch_fn(), gen)
-            if guard.requested:
-                break
-        metrics = {k: float(v) for k, v in m.items()}
+        with in_mesh:
+            for _ in range(iters):
+                m = step_fn(_shard(batch_fn(), mesh), gen)
+                if any_over_ranks(guard.requested):
+                    break
+            metrics = {k: float(v) for k, v in m.items()}
 
-        val_psnrs = []
-        for _ in range(max(1, n_val)):
-            val_psnrs.append(float(eval_fn(val_batch_fn(), gen)["psnr"]))
-            if guard.requested:
-                break
+            val_psnrs = []
+            for _ in range(max(1, n_val)):
+                val_psnrs.append(float(eval_fn(_shard(val_batch_fn(), mesh), gen)["psnr"]))
+                if any_over_ranks(guard.requested):
+                    break
+            stop = any_over_ranks(guard.requested)
         metrics["psnr"] = float(np.mean(val_psnrs))
 
-        log_fn(f"epoch {epoch} rot {rot} "
-               + " ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.items()))
-               + f" ({time.time() - t0:.1f}s)")
-        logger.write(epoch + 1, metrics, rot=rot)
-        ckpt.save(epoch + 1, state.state_dict(), cfg, metrics)
-        if guard.requested:
-            log_fn("preemption requested; checkpointed and exiting")
+        if main:
+            log_fn(f"epoch {epoch} rot {rot} "
+                   + " ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.items()))
+                   + f" ({time.time() - t0:.1f}s)")
+            logger.write(epoch + 1, metrics, rot=rot)
+            ckpt.save(epoch + 1, state.state_dict(), cfg, metrics)
+        if mesh is not None:
+            mesh.barrier()
+        if stop:
+            if main:
+                log_fn("preemption requested; checkpointed and exiting")
             break
     return metrics
 
@@ -174,13 +269,15 @@ def run_dpr(cfg: Config, workdir: str, *, epochs: Optional[int] = None,
 def run_vqvae(cfg: Config, workdir: str, *, epochs: int = 1,
               iters_per_epoch: int = 100, lr: float = 3e-4, val_iters: int = 8,
               sample_grid_every: int = 1, log_fn: Callable[[str], None] = print,
-              device="cuda") -> Dict[str, float]:
+              use_mesh: bool = True, device="cuda") -> Dict[str, float]:
     """Stage-1 training loop (train_vqvae.py).  The codebooks start from the first
     train batch (the data-dependent init).  Each epoch: `iters_per_epoch`
     steps, a held-out MSE over `val_iters` batches of the val stream that
     picks the best checkpoint (min), and an input | recon strip PNG under
     `<workdir>/vqvae_samples/`.  An existing checkpoint is restored first
-    and the epochs run again from 0, as the JAX loop does."""
+    and the epochs run again from 0, as the JAX loop does.  use_mesh: the
+    mesh path across processes (module docstring); every rank's codebook
+    init sees the whole first batch."""
     from pixelsynth_tpu_torch.eval.harness import save_png
     from pixelsynth_tpu_torch.train.vqvae import create_vqvae_state, make_vqvae_train_step
 
@@ -190,6 +287,10 @@ def run_vqvae(cfg: Config, workdir: str, *, epochs: int = 1,
     state = create_vqvae_state(model, torch.Generator().manual_seed(cfg.train.seed),
                                lr=lr, init_batch=init_img)
     step_fn = make_vqvae_train_step(model, state)
+    mesh, in_mesh = _mesh_of(cfg, use_mesh, device)
+    main = mesh is None or mesh.is_main
+    if mesh is not None:
+        replicate(model, mesh)
 
     @torch.no_grad()
     def recon_fn(img):
@@ -200,32 +301,36 @@ def run_vqvae(cfg: Config, workdir: str, *, epochs: int = 1,
                              best_metric="val_mse", best_mode="min")
     if ckpt.latest_step() is not None:
         state.load_state_dict(ckpt.restore(map_location=device))
-        log_fn(f"resumed from epoch {ckpt.latest_step()}")
+        if main:
+            log_fn(f"resumed from epoch {ckpt.latest_step()}")
     logger = MetricsLogger(workdir, "vqvae")
     batch_fn = make_batch_source(cfg, "train")
     val_batch_fn = make_batch_source(cfg, "val")
 
     def to_dev(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+        return _shard(torch.as_tensor(np.asarray(a, np.float32), device=device), mesh)
 
     metrics: Dict[str, float] = {}
     for epoch in range(epochs):
         m: Dict = {}
-        for _ in range(iters_per_epoch):
-            m = step_fn(to_dev(batch_fn()["input_img"]))
-            if guard.requested:
-                break
-        metrics = {k: float(v) for k, v in m.items()}
+        with in_mesh:
+            for _ in range(iters_per_epoch):
+                m = step_fn(to_dev(batch_fn()["input_img"]))
+                if any_over_ranks(guard.requested):
+                    break
+            metrics = {k: float(v) for k, v in m.items()}
 
-        val_mses = []
-        for _ in range(max(1, val_iters)):
-            vimg = to_dev(val_batch_fn()["input_img"])
-            val_mses.append(float(((recon_fn(vimg) - vimg) ** 2).mean()))
-            if guard.requested:
-                break
+            val_mses = []
+            for _ in range(max(1, val_iters)):
+                vimg = to_dev(val_batch_fn()["input_img"])
+                mse = mean_over_ranks({"mse": ((recon_fn(vimg) - vimg) ** 2).mean()})
+                val_mses.append(float(mse["mse"]))
+                if any_over_ranks(guard.requested):
+                    break
+            stop = any_over_ranks(guard.requested)
         metrics["val_mse"] = float(np.mean(val_mses))
 
-        if sample_grid_every and (epoch + 1) % sample_grid_every == 0:
+        if main and sample_grid_every and (epoch + 1) % sample_grid_every == 0:
             # input row | recon row (train_vqvae.py:68-84)
             n = min(8, vimg.shape[0])
             recon = recon_fn(vimg[:n]).clamp(-1, 1).cpu().numpy()
@@ -234,10 +339,14 @@ def run_vqvae(cfg: Config, workdir: str, *, epochs: int = 1,
             save_png(os.path.join(workdir, "vqvae_samples", f"epoch_{epoch + 1:04d}.png"),
                      np.concatenate([top, bot], axis=0))
 
-        log_fn(f"vqvae epoch {epoch} " + " ".join(f"{k}={v:.5f}" for k, v in metrics.items()))
-        logger.write(epoch + 1, metrics)
-        ckpt.save(epoch + 1, state.state_dict(), cfg, metrics)
-        if guard.requested:
+        if main:
+            log_fn(f"vqvae epoch {epoch} "
+                   + " ".join(f"{k}={v:.5f}" for k, v in metrics.items()))
+            logger.write(epoch + 1, metrics)
+            ckpt.save(epoch + 1, state.state_dict(), cfg, metrics)
+        if mesh is not None:
+            mesh.barrier()
+        if stop:
             break
     return metrics
 
@@ -307,7 +416,8 @@ def run_lmconv(cfg: Config, workdir: str, *, epochs: int = 1,
                orders_path: Optional[str] = None, mask_pool_batches: int = 5,
                val_fraction: float = 0.05, val_iters: int = 8,
                preview_every: int = 0, vq_model=None,
-               log_fn: Callable[[str], None] = print, device="cuda") -> Dict[str, float]:
+               log_fn: Callable[[str], None] = print, use_mesh: bool = True,
+               device="cuda") -> Dict[str, float]:
     """Stage-3 training loop (train_lmconv.py:662-839).
 
     codes_path: .npy of (N, h, w) int codes; orders_path: .npy of (M, h*w,
@@ -323,7 +433,8 @@ def run_lmconv(cfg: Config, workdir: str, *, epochs: int = 1,
     conv the JAX loop always builds (loop.py:443-447, which ignores the
     field); "pallas" runs K3 under the gradient.  An existing checkpoint
     is restored first and the epochs run again from 0, as the JAX loop
-    does."""
+    does.  use_mesh: the mesh path across processes (module docstring);
+    every rank draws the same codes and masks and takes its shard."""
     from pixelsynth_tpu_torch.ops.orders import (
         augment_orders, masks_for_orders_batch, raster_scan_order,
     )
@@ -341,12 +452,17 @@ def run_lmconv(cfg: Config, workdir: str, *, epochs: int = 1,
     if state.ema_params is not None:
         state.ema_params = [e.to(device) for e in state.ema_params]
     step_fn = make_lmconv_train_step(model, state)
+    mesh, in_mesh = _mesh_of(cfg, use_mesh, device)
+    main = mesh is None or mesh.is_main
+    if mesh is not None:
+        replicate([model, state.ema_params], mesh)
 
     ckpt = CheckpointManager(os.path.join(workdir, "lmconv"), max_to_keep=2,
                              best_metric="val_bpd", best_mode="min")
     if ckpt.latest_step() is not None:
         state.load_state_dict(ckpt.restore(map_location=device))
-        log_fn(f"resumed from epoch {ckpt.latest_step()}")
+        if main:
+            log_fn(f"resumed from epoch {ckpt.latest_step()}")
     logger = MetricsLogger(workdir, "lmconv")
 
     rng = np.random.default_rng(cfg.train.seed)
@@ -368,45 +484,54 @@ def run_lmconv(cfg: Config, workdir: str, *, epochs: int = 1,
     def draw(codes_from):
         bidx = rng.integers(len(codes_from), size=B)
         midx = rng.integers(len(mask_pool), size=B)
-        return (torch.as_tensor(codes_from[bidx], device=device).long(),
-                torch.as_tensor(mask_pool[midx], device=device))
+        return _shard((torch.as_tensor(codes_from[bidx], device=device).long(),
+                       torch.as_tensor(mask_pool[midx], device=device)), mesh)
 
     gen = torch.Generator(device).manual_seed(cfg.train.seed + 2)
     metrics: Dict[str, float] = {}
     for epoch in range(epochs):
         m: Dict = {}
-        for _ in range(iters_per_epoch):
-            m = step_fn(*draw(codes_all), gen)
-            if guard.requested:
-                break
-        metrics = {k: float(v) for k, v in m.items()}
-
-        # val bpd on the held-out codes (train_lmconv.py:765-791), on the
-        # EMA parameters when enabled (the reference samples with them)
-        val_sd = state.ema_state_dict() or model.state_dict()
-        live = {k: v.clone() for k, v in model.state_dict().items()}
-        model.load_state_dict(val_sd)
-        model.eval()
-        ces = []
-        with torch.no_grad():
-            for _ in range(max(1, val_iters)):
-                ces.append(float(lmconv_loss(model, *draw(codes_val))))
-                if guard.requested:
+        with in_mesh:
+            for _ in range(iters_per_epoch):
+                m = step_fn(*draw(codes_all), gen)
+                if any_over_ranks(guard.requested):
                     break
-        model.load_state_dict(live)
+            metrics = {k: float(v) for k, v in m.items()}
+
+            # val bpd on the held-out codes (train_lmconv.py:765-791), on
+            # the EMA parameters when enabled (the reference samples with them)
+            val_sd = state.ema_state_dict() or model.state_dict()
+            live = {k: v.clone() for k, v in model.state_dict().items()}
+            model.load_state_dict(val_sd)
+            model.eval()
+            ces = []
+            with torch.no_grad():
+                for _ in range(max(1, val_iters)):
+                    ce = mean_over_ranks({"ce": lmconv_loss(model, *draw(codes_val))})
+                    ces.append(float(ce["ce"]))
+                    if any_over_ranks(guard.requested):
+                        break
+            model.load_state_dict(live)
+            stop = any_over_ranks(guard.requested)
         metrics["val_bpd"] = float(np.mean(ces) / np.log(2.0))
 
         if preview_every and (epoch + 1) % preview_every == 0:
+            # every rank draws the preview's indices: the streams stay equal
             pidx = rng.integers(len(orders_all), size=min(4, len(codes_val)))
-            lmconv_sample_preview(
-                cfg, val_sd, vq_model, codes_val[:len(pidx)], orders_all[pidx],
-                os.path.join(workdir, "lmconv_samples", f"epoch_{epoch + 1:04d}.png"),
-                gen=torch.Generator(device).manual_seed(cfg.train.seed + 3 + epoch),
-                device=device)
+            if main:
+                lmconv_sample_preview(
+                    cfg, val_sd, vq_model, codes_val[:len(pidx)], orders_all[pidx],
+                    os.path.join(workdir, "lmconv_samples", f"epoch_{epoch + 1:04d}.png"),
+                    gen=torch.Generator(device).manual_seed(cfg.train.seed + 3 + epoch),
+                    device=device)
 
-        log_fn(f"lmconv epoch {epoch} " + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
-        logger.write(epoch + 1, metrics)
-        ckpt.save(epoch + 1, state.state_dict(), cfg, metrics)
-        if guard.requested:
+        if main:
+            log_fn(f"lmconv epoch {epoch} "
+                   + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
+            logger.write(epoch + 1, metrics)
+            ckpt.save(epoch + 1, state.state_dict(), cfg, metrics)
+        if mesh is not None:
+            mesh.barrier()
+        if stop:
             break
     return metrics

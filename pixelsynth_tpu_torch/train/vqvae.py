@@ -15,6 +15,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from pixelsynth_tpu_torch.models.vqvae import Quantize, VQVAETop
+from pixelsynth_tpu_torch.parallel.mesh import mean_over_ranks
 from pixelsynth_tpu_torch.train.dpr import Adam, _grads
 
 LATENT_LOSS_WEIGHT = 0.25  # train_vqvae.py:30
@@ -97,6 +98,7 @@ def make_vqvae_train_step(model: VQVAETop, state: VQTrainState) -> Callable:
         loss = mse + LATENT_LOSS_WEIGHT * diff
         state.opt.update(_grads(loss, params))
         state.step += 1
-        return {"loss": loss.detach(), "mse": mse.detach(), "latent": diff.detach()}
+        return mean_over_ranks({"loss": loss.detach(), "mse": mse.detach(),
+                                "latent": diff.detach()})
 
     return step

@@ -50,8 +50,39 @@ def test_demo_image_io_matches_the_jax_demo(tmp_path):
     assert ratio == want_ratio == 1.0 and got.shape == (1, 32, 32, 3)
     np.testing.assert_array_equal(got, want)
     wide, ratio = load_demo_image(str(tmp_path / "jax.png"), 16)
-    assert wide.shape == (1, 16, 16, 3) and ratio == 1.0
-    assert np.abs(wide).max() <= 1.0
+    want, want_ratio = jax_load(str(tmp_path / "jax.png"), 16)
+    assert wide.shape == (1, 16, 16, 3) and ratio == want_ratio == 1.0
+    within_one_level(wide, want)
+
+
+def within_one_level(got, want, frac=0.01):
+    """got and want, images in [-1, 1] from uint8, differ by at most one
+    uint8 level (2/255), on at most `frac` of the values."""
+    levels = np.abs(np.rint((np.asarray(got, np.float64) + 1) * 127.5)
+                    - np.rint((np.asarray(want, np.float64) + 1) * 127.5))
+    assert got.shape == want.shape
+    assert levels.max() <= 1, levels.max()
+    assert (levels > 0).mean() <= frac, (levels > 0).mean()
+
+
+@pytest.mark.parametrize("shape, W", [((24, 40), 16), ((360, 640), 256)])
+def test_demo_resize_matches_the_jax_demo(tmp_path, shape, W):
+    """An image that is not W x W (a photograph's aspect) resized to W as
+    the JAX demo's PIL BILINEAR resize does (antialiased when it shrinks):
+    within one uint8 level on at most 1% of the values; the aspect ratio
+    the same."""
+    from PIL import Image
+
+    from pixelsynth_tpu.data.demo_data import load_demo_image as jax_load
+    from pixelsynth_tpu_torch.data.demo_data import load_demo_image
+
+    img = np.random.default_rng(0).integers(0, 256, shape + (3,), dtype=np.uint8)
+    path = str(tmp_path / "photo.png")
+    Image.fromarray(img).save(path)
+    got, ratio = load_demo_image(path, W)
+    want, want_ratio = jax_load(path, W)
+    assert ratio == want_ratio
+    within_one_level(got, want)
 
 
 def _write_torchvision_resnet18(path, num_classes, seed):

@@ -124,3 +124,41 @@ def test_encoder_pipeline_defaults_to_the_card():
     cfg.model.use_rgb_features, cfg.model.predict_residual = False, False
     with pytest.raises((RuntimeError, AssertionError)):
         PixelSynth(cfg)
+
+
+# the other datasets, the extract tools and data parallelism: none imports
+# JAX or the JAX package; only the image decoder reaches for PIL, inside the
+# function that decodes a file that is not a PNG
+DATASET_PARALLEL_MODULES = [
+    "pixelsynth_tpu_torch.data.realestate10k", "pixelsynth_tpu_torch.data.custom",
+    "pixelsynth_tpu_torch.data.habitat_bridge", "pixelsynth_tpu_torch.data.demo_data",
+    "pixelsynth_tpu_torch.tools.extract_vqvae_dataset",
+    "pixelsynth_tpu_torch.tools.extract_code",
+    "pixelsynth_tpu_torch.tools.extract_pixcnn_orders",
+    "pixelsynth_tpu_torch.parallel.distributed", "pixelsynth_tpu_torch.parallel.mesh",
+    "pixelsynth_tpu_torch.parallel.dryrun", "pixelsynth_tpu_torch.utils.devices",
+]
+PIL_INSIDE = {"pixelsynth_tpu_torch.data.realestate10k": "decode_image_u8"}
+
+
+@pytest.mark.parametrize("name", DATASET_PARALLEL_MODULES)
+def test_dataset_and_parallel_modules_import_without_jax(name):
+    import importlib
+
+    module = importlib.import_module(name)
+    with open(module.__file__) as f:
+        tree = ast.parse(f.read(), module.__file__)
+    bad = []
+    for fn in [None] + [n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)]:
+        nodes = ast.walk(fn) if fn is not None else ast.iter_child_nodes(tree)
+        for node in nodes:
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            allowed = {"PIL"} if fn is not None and PIL_INSIDE.get(name) == fn.name else set()
+            bad += [n for n in names
+                    if n.split(".")[0] in (FORBIDDEN | {"cv2", "PIL"}) - allowed]
+    assert not bad, bad

@@ -81,8 +81,10 @@ def test_shard_batches_match_jax(tmp_path):
             got = make_batch_source(cfg, split)()
             _arrays_equal(got, jax_batch_source(jcfg, split)())
             assert "depth_img" in got
-    cfg.dataset = "habitat_live"
-    with pytest.raises(NotImplementedError, match="habitat_live"):
+    # "habitat_live" is served too (tests/test_torch_datasets.py); an unknown
+    # name raises, as the JAX factory's does
+    cfg.dataset = "no_such_dataset"
+    with pytest.raises(ValueError, match="unknown dataset"):
         make_batch_source(cfg)
 
 

@@ -80,8 +80,10 @@ def test_batch_source_is_synthetic_only():
     v = make_batch_source(cfg, "val")()
     assert b["input_img"].shape == (2, 64, 64, 3)
     assert not np.array_equal(b["input_img"], v["input_img"])
-    cfg.dataset = "realestate"
-    with pytest.raises(NotImplementedError, match="synthetic"):
+    # every dataset of the JAX package is served (tests/test_torch_datasets.py);
+    # an unknown name raises, as the JAX factory's does
+    cfg.dataset = "no_such_dataset"
+    with pytest.raises(ValueError, match="unknown dataset"):
         make_batch_source(cfg)
 
 
