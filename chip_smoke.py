@@ -16,6 +16,9 @@ prints the final ok line):
      K2: W=256, 2 images x 131072 points, from the binner's tables, each
      accumulation, coverage on points at the radius from the edges of the
      warps' rectangles, and no slot gather in `splat()` by the profiler;
+     its bf16 entry (`phase_k2_bf16`: blend_dtype "bfloat16") at C = 3, 9
+     and 64 in each accumulation, its coverage bit-equal to the f32
+     entry's, 20 repeated calls bit-identical, one kernel a call;
      K3: pop 16, 32x32, (Cin, Cout) = (160, 80), (160, 160) and, dilation
      2, (80, 80), bf16 (the resident route; 20 repeated calls
      bit-identical, one device kernel a call by the profiler; the build
@@ -99,7 +102,14 @@ prints the final ok line):
  12. data parallelism (`phase_parallel`): an NCCL group of one process,
      one stage-2 step through the mesh path held to the step without a
      group (losses within 1e-5), and a sharded-population view (K1) held
-     to the ungrouped view (codes equal).
+     to the ungrouped view (codes equal);
+ 13. the tools (`phase_tools`, build/tools/): profile_view,
+     profile_hotspots, profile_splat (the f32 and bf16 splat: background
+     unmoved, within 0.02 of scale), tune_splat.sweep, sweep_speculative,
+     scene_drift on the stitched checkpoint, import_reference_ckpt on
+     reference-layout files at the Config() widths (a default view through
+     K1 and K2, forward_angle with the bf16 blend against f32) and
+     export_torch_weights' npz read back by the VGG19 loader.
 Each path's launch counts (and the wrappers' counts of plain-version
 calls) are zeroed just before it is driven and read just after.  The
 script ends with a `kernels` JSON line, the card's name
@@ -678,6 +688,102 @@ def phase_k2(report, W=256, N=65536 * 2):
         f"{by / 1e6:.1f} MB, bound {max(t_ops, t_bytes):.4f} ms")
 
 
+def phase_k2_bf16(report, W=256, N=65536 * 2, repeats=20):
+    """K2's bf16 entry (`splat.blend_dtype="bfloat16"`: bf16 feature rows,
+    each weight rounded to bf16, f32 sums) against its plain version
+    (`blend_slots_plain`, the same rounding in PyTorch) on the bench
+    protocol's points (W=256, 2 images x 131072) at C = 3, 9 and 64, in
+    every accumulation, from the binner's tables, the features given in
+    bf16 (the wrapper's one cast is the caller's).  The two sides round the
+    same weights, but a weight within an f32 ulp of a bf16 boundary (the
+    plain version's cumprod takes another order) may round the other way:
+    the max difference is held to 1e-2 of the image's scale and the share
+    of values off by more than 1e-5 of it to 1e-3.  Under wsumnorm both
+    round alpha / max(sum alpha, 1e-4) as the JAX package does (the kernel
+    walks the slots twice; the sum in f64 on both sides), so the same two
+    bars hold.  The coverage is bit-equal to the f32 kernel's and the plain
+    version's; 20 repeated calls are bit-identical; one device kernel a
+    call by the profiler.  Timed at each C: ms a call, device us, the f32
+    entry's ms on the same points, plain ms, the bound (bytes with 2 a
+    feature at 3.35 TB/s; the weights' f32 flops at 67 TFLOP/s, the bf16
+    products at 989 TFLOP/s); the report's entry is C = 64
+    (profile_splat's protocol).  At C = 3 (the stage-2 step's RGB) and 64
+    one backward under a gradient (`k2_wide_backward`)."""
+    import dataclasses
+
+    import torch
+    from pixelsynth_tpu_torch.config import SplatConfig
+    from pixelsynth_tpu_torch.ops import splat as K2
+
+    cfg32 = SplatConfig()
+    cfg = dataclasses.replace(cfg32, blend_dtype="bfloat16")
+    errs, timed = [], {}
+    for C in (3, 9, 64):
+        _, pts, fts, vld = _k2_inputs(C=C, W=W, N=N)
+        fb = fts.to(torch.bfloat16)
+        slot_idx, slot_valid = K2._bin_points_batched(pts, vld, W, cfg)
+        for acc in ("alphacomposite", "wsum", "wsumnorm"):
+            c = dataclasses.replace(cfg, accumulation=acc)
+            ok, ck = K2.blend_slots(pts, fb, slot_idx, slot_valid, W, c)
+            op, cp = K2.blend_slots_plain(pts, fb, slot_idx, slot_valid, W, c)
+            _, c32 = K2.blend_slots(pts, fts, slot_idx, slot_valid, W,
+                                    dataclasses.replace(cfg32, accumulation=acc))
+            torch.cuda.synchronize()
+            d = (ok - op).abs()
+            scale = float(op.abs().max())
+            err = float(d.max())
+            off = float((d > 1e-5 * scale).float().mean())
+            same_cov = bool(torch.equal(ck, c32) and torch.equal(ck, cp))
+            errs.append(err)
+            log(f"[K2 bf16 C={C}] {acc}: max|kernel-plain| {err:.3e} = {err / scale:.2e} of "
+                f"scale {scale:.3f} (bound 1e-2), share off by > 1e-5 of scale {off:.2e} "
+                f"(bound 1e-3); coverage bit-equal to the f32 kernel's and the plain "
+                f"version's {same_cov}")
+            if not (err <= 1e-2 * scale and off <= 1e-3 and same_cov):
+                raise AssertionError(f"K2 bf16 disagrees with its plain version (C={C}, {acc})")
+        run = lambda: K2.blend_slots(pts, fb, slot_idx, slot_valid, W, cfg)  # noqa: E731
+        first = run()
+        same = all(torch.equal(run()[0], first[0]) for _ in range(repeats - 1))
+        torch.cuda.synchronize()
+        log(f"[K2 bf16 C={C}] {repeats} repeated calls bit-identical: {same}")
+        if not same:
+            raise AssertionError(f"K2 bf16 at C={C} is not deterministic")
+        kernels, dev_us, counted = device_kernels(run, reps=10)
+        check_one_kernel_a_call(f"[K2 bf16 C={C}]", "splat_blend_bf16", kernels, counted)
+        run32 = lambda: K2.blend_slots(pts, fts, slot_idx, slot_valid, W, cfg32)  # noqa: E731
+        ms32a, ms, ms32b = time_ms(run32), time_ms(run), time_ms(run32)
+        pms = time_ms(lambda: K2.blend_slots_plain(pts, fb, slot_idx, slot_valid, W, cfg),
+                      reps=3, rounds=3)
+        # the function's own work as phase_k2 counts it, the features read
+        # as bf16 (2 bytes a value); of the flops a covered pair, the 15 of
+        # its weight are f32 (67 TFLOP/s) and the 2 a channel bf16 x bf16
+        # products summed in f32, the bf16 tensor cores' type (989
+        # TFLOP/s); the two run on different units, so the least time of
+        # the operations is the larger of the two
+        B, nT, M = slot_valid.shape
+        n_valid = int(slot_valid.sum())
+        pairs = covered_pairs(pts, slot_idx, slot_valid, W, cfg)
+        f32_flops, bf16_flops = pairs * 15, pairs * 2 * C
+        by = (B * nT * M + n_valid * 8 + pts.numel() * 4 + fb.numel() * 2
+              + B * W * W * (4 * C + 1))
+        t_f32, t_bf16 = f32_flops / PEAK_F32_FLOPS * 1e3, bf16_flops / PEAK_BF16_FLOPS * 1e3
+        t_ops, t_bytes = max(t_f32, t_bf16), by / PEAK_BYTES * 1e3
+        timed[C] = (ms, pms, t_ops, t_bytes)
+        log(f"[K2 bf16 C={C}] {ms:.4f} ms a call (the f32 entry on the same points "
+            f"{ms32a:.4f}, {ms32b:.4f} ms before and after), device {dev_us:.1f} us, "
+            f"plain {pms:.3f} ms; {f32_flops / 1e9:.3f} GFLOP f32 ({t_f32 * 1e3:.1f} us "
+            f"at 67 TFLOP/s), {bf16_flops / 1e9:.3f} GFLOP bf16 ({t_bf16 * 1e3:.1f} us at "
+            f"989 TFLOP/s), {by / 1e6:.1f} MB ({t_bytes * 1e3:.1f} us at 3.35 TB/s): "
+            f"bound {max(t_ops, t_bytes):.4f} ms by "
+            f"{'operations' if t_ops >= t_bytes else 'bytes'}; on {card_line()}")
+        if C in (3, 64):
+            k2_wide_backward(C, W, blend_dtype="bfloat16")
+    ms, pms, t_ops, t_bytes = timed[64]
+    report["splat_blend_bf16"] = _entry(
+        "splat_blend_bf16", "splat_blend.cu", "pixelsynth_tpu/ops/splat_pallas.py:40",
+        max(errs), ms, pms, t_ops, t_bytes)
+
+
 def _view_points(W=256, B=2, seed=11, frame=1):
     """A view's own splat input: B smooth depth maps at W (one point a
     pixel, W*W an image) lifted into camera `frame` of nerf_like_circle(8)
@@ -766,17 +872,27 @@ def k2_wide_check(C, W=256, reps=10, timed=False):
                 t_bytes=t_bytes)
 
 
-def k2_wide_backward(C=64, W=256):
+def k2_wide_backward(C=64, W=256, blend_dtype="float32"):
     """One backward of the splat at C channels under a gradient
     (`_SplatBlendFn`: K2's forward, the plain recomputed VJP, as the JAX
-    package's `splat_pallas`) on a view's own points, held to autograd
-    through the plain blend to 1e-4 of each gradient's scale.  -> the
-    backward's ms (host clock around a synchronised call)."""
+    package's `splat_pallas`) on a view's own points, the features f32 as
+    a step gives them, held to autograd through the plain blend on the
+    same inputs.  In f32 to 1e-4 of each gradient's scale.  With
+    blend_dtype "bfloat16" (K2's bf16 entry forward, the cast to bf16 and
+    the weights' rounding inside the recompute) the gradients carry bf16
+    roundings, and an f32 ulp between the recompute's tile groups and the
+    whole plain blend may round a term the other way: the max difference
+    to 1e-2 of the scale and the share of values off by more than 1e-5 of
+    it to 1e-3, the forward's bars.  -> the backward's ms (host clock
+    around a synchronised call)."""
     import torch
     from pixelsynth_tpu_torch.config import SplatConfig
     from pixelsynth_tpu_torch.ops import splat as K2
 
-    cfg = SplatConfig()
+    cfg = SplatConfig(blend_dtype=blend_dtype)
+    bf16 = blend_dtype == "bfloat16"
+    name = "splat_blend_bf16" if bf16 else "splat_blend"
+    tag = f"[K2{' bf16' if bf16 else ''} C={C}]"
     pts, vld = _view_points(W)
     B, N, _ = pts.shape
     g = torch.Generator(device=DEVICE).manual_seed(C + 2)
@@ -787,7 +903,7 @@ def k2_wide_backward(C=64, W=256):
     for blend, into in ((K2.blend_slots, got), (K2.blend_slots_plain, want)):
         p = pts.clone().requires_grad_(True)
         f = fts.clone().requires_grad_(True)
-        count = lambda: K2.LAUNCHES["splat_blend"] + K2.PLAIN_CALLS["splat_blend"]  # noqa
+        count = lambda: K2.LAUNCHES[name] + K2.PLAIN_CALLS["splat_blend"]  # noqa: E731
         before = count()
         out, _ = blend(p, f, slot_idx, slot_valid, W, cfg)
         launched = count() - before
@@ -797,14 +913,22 @@ def k2_wide_backward(C=64, W=256):
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         if launched != (1 if blend is K2.blend_slots else 0):
-            raise AssertionError(f"the splat under a gradient launched K2 {launched} times")
+            raise AssertionError(f"the splat under a gradient launched {name} {launched} times")
         del out
-    errs = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(got, want)]
-    log(f"[K2 C={C}] backward under a gradient: {secs[0] * 1e3:.2f} ms (autograd through "
-        f"the plain blend {secs[1] * 1e3:.2f} ms); d points, d feats against the plain "
-        f"blend's: {errs[0]:.2e}, {errs[1]:.2e} of their scale (tolerance 1e-4)")
-    if not max(errs) <= 1e-4:
-        raise AssertionError(f"the splat's gradient at C={C} differs from the plain blend's")
+    errs, offs = [], []
+    for a, b in zip(got, want):
+        d, scale = (a - b).abs(), float(b.abs().max())
+        errs.append(float(d.max()) / scale)
+        offs.append(float((d > 1e-5 * scale).float().mean()))
+    bars = "max 1e-2 of scale, share off by > 1e-5 of it 1e-3" if bf16 else "1e-4 of scale"
+    log(f"{tag} backward under a gradient: {secs[0] * 1e3:.2f} ms (autograd through "
+        f"the plain blend {secs[1] * 1e3:.2f} ms), 1 launch of {name}; d points, d feats "
+        f"against the plain blend's: {errs[0]:.2e}, {errs[1]:.2e} of their scale, shares "
+        f"off by > 1e-5 of it {offs[0]:.2e}, {offs[1]:.2e} (tolerance {bars})")
+    ok = (max(errs) <= 1e-2 and max(offs) <= 1e-3) if bf16 else max(errs) <= 1e-4
+    if not ok:
+        raise AssertionError(f"the splat's gradient at C={C} ({blend_dtype}) differs from "
+                             "the plain blend's")
     del got, want
     torch.cuda.empty_cache()
     return secs[0] * 1e3
@@ -3184,6 +3308,255 @@ def phase_parallel(report, B=4, num_samples=16, backend="nccl"):
         shutdown()
 
 
+class _path:
+    """One tool's run as a path of the report: the launch counts zeroed
+    just before it and read just after, the kernels `names` recorded under
+    `tag` (each must have launched), no plain version taken."""
+
+    def __init__(self, report, tag, names):
+        self.report, self.tag, self.names = report, tag, names
+
+    def __enter__(self):
+        import torch
+
+        torch.cuda.synchronize()
+        zero_launches()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, kind, *_):
+        import torch
+
+        if kind is not None:
+            return False
+        torch.cuda.synchronize()
+        self.seconds = time.perf_counter() - self.t0
+        launches = read_launches()
+        check_no_plain(self.tag)
+        record_launches(self.report, launches, self.names, self.tag)
+        log(f"[tools] {self.tag}: {self.seconds:.1f} s, launches "
+            + json.dumps({k: v for k, v in launches.items() if v}))
+        return False
+
+
+def _finite_numbers(tag, out):
+    bad = {k: v for k, v in out.items()
+           if isinstance(v, (int, float)) and not (v == v and abs(v) < float("inf"))}
+    if bad:
+        raise AssertionError(f"{tag} gave numbers that are not finite: {bad}")
+
+
+def _reference_files(ps, out_dir, seed=0):
+    """Reference-layout state dicts of ps's unet, projector, disc, vqvae and
+    PixelCNN (tests/torch_reference_dicts.random_reference_state_dict),
+    written as the reference writes its three checkpoint files: -> the
+    import_from_files keywords."""
+    import numpy as np
+    import torch
+    from pixelsynth_tpu_torch.tools import import_reference_ckpt as imp
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_reference_dicts import random_reference_state_dict
+
+    rng = np.random.default_rng(seed)
+    mc = ps.cfg.model
+    plans = {"pts_regressor": (imp.plan_unet(ps.unet.levels), ps.unet),
+             "projector": (imp.plan_resnet_blocks(ps.projector, "eblocks"), ps.projector),
+             "netD": (imp.plan_discriminator(), ps.disc)}
+    main = {}
+    for prefix, (plan, module) in plans.items():
+        sd = random_reference_state_dict(plan, module, rng)
+        main.update({f"model.module.{prefix}.{k}": v for k, v in sd.items()})
+    vq = random_reference_state_dict(imp.plan_vqvae(mc.vqvae.n_res_block), ps.vqvae, rng)
+    lm = random_reference_state_dict(imp.plan_lmconv(mc.lmconv.nr_resnet), ps.pixelcnn, rng)
+    os.makedirs(out_dir, exist_ok=True)
+    paths = {k: os.path.join(out_dir, f"{k}.pth")
+             for k in ("pixelsynth", "vqvae", "autoregressive")}
+    torch.save({"state_dict": main, "epoch": 0}, paths["pixelsynth"])
+    torch.save({f"module.{k}": v for k, v in vq.items()}, paths["vqvae"])
+    torch.save({"model_state_dict": lm, "epoch": 0}, paths["autoregressive"])
+    return {f"{k}_path": v for k, v in paths.items()}
+
+
+def phase_tools(report, view_samples=8, cfg=None, W=256, N=65536 * 2):
+    """The profiling and tuning tools, the importer and the exporter on the
+    card, each at reduced repetitions (output under build/tools/):
+      * profile_view (reps 2, samples 8; Config() widths, random weights):
+        the view step's stages one by one, then the step;
+      * profile_hotspots (reps 2): the U-Net's and the decoder's parts;
+      * profile_splat (reps 5): the splat at f32 and bf16 on the bench
+        protocol (C=64); the background must not move and the bf16 image
+        stay within the JAX package's bar of 0.02 x scale of the f32 one
+        (tests/test_splat.py:158-160);
+      * tune_splat.sweep on three rows (a tile_group-only change, which K2
+        does not read; tile 32 with M 2048; tile 24, which K2 refuses at
+        W=256) against the default;
+      * sweep_speculative (specs 4 and 12, reps 2);
+      * scene_drift on evidence/relay/stitched.npz over its held-out world
+        (heldout_demo_world), the "fixed" knobs, directions R and L,
+        num_split 2;
+      * import_reference_ckpt: a reference-layout state dict at the
+        Config() widths, written as the reference's three files, read by
+        import_from_files; one default view through K1 and K2 must be
+        finite in [-1, 1]; then forward_angle on it over
+        nerf_like_circle(4) with blend_dtype "bfloat16" against "float32"
+        (the max and mean difference logged, K2's bf16 launches recorded);
+      * export_torch_weights.export_features of a VGG19-layout stack built
+        here, read back by models/losses.load_torch_vgg19.
+    Each tool's kernel launches are recorded as a path of the report.
+    `cfg` (default Config()) sets the networks' widths and W, N the splat
+    tools' protocol (the bench protocol by default)."""
+    import copy
+
+    import numpy as np
+    import torch
+    from pixelsynth_tpu_torch.config import Config
+    from pixelsynth_tpu_torch.data.panorama import heldout_demo_world
+    from pixelsynth_tpu_torch.geometry.paths import get_rt_from_rot
+    from pixelsynth_tpu_torch.pipeline import CloudState, PixelSynth
+    from pixelsynth_tpu_torch.scene import SceneGenerator
+    from pixelsynth_tpu_torch.tools import (
+        export_torch_weights, import_reference_ckpt, profile_hotspots, profile_splat,
+        profile_view, scene_drift, sweep_speculative, tune_splat)
+    from pixelsynth_tpu_torch.utils.camera_paths import nerf_like_circle
+
+    from pixelsynth_tpu_torch.demo import load_model
+
+    t_phase = time.perf_counter()
+    cfg = cfg or Config()
+    out_dir = os.path.join(REPO, "build", "tools")
+    os.makedirs(out_dir, exist_ok=True)
+    K1K2 = ("lmconv_up", "lmconv_down", "splat_blend", "custom_order")
+
+    with _path(report, "tools: profile_view", K1K2):
+        pv = profile_view.profile_view(load_model(None, copy.deepcopy(cfg), device=DEVICE),
+                                       samples=view_samples, reps=2, device=DEVICE)
+    _finite_numbers("profile_view", pv)
+    log(f"[tools] profile_view (samples {view_samples}, reps 2) on {card_line()}: "
+        + json.dumps(pv))
+
+    hs = profile_hotspots.profile_hotspots(W, reps=2, cfg=cfg, device=DEVICE)
+    _finite_numbers("profile_hotspots", hs)
+    log("[tools] profile_hotspots (reps 2): " + json.dumps(hs))
+
+    with _path(report, "tools: profile_splat", ("splat_blend", "splat_blend_bf16")):
+        # the bench protocol's draws (profile_splat._inputs) at W, N
+        sp = profile_splat.profile_splat(
+            reps=5, inputs=(W, *tune_splat._inputs(W, N, 2, device=DEVICE)), device=DEVICE)
+    _finite_numbers("profile_splat", sp)
+    log("[tools] profile_splat (reps 5): " + json.dumps(sp))
+    bar = 0.02 * max(sp["bf16_scale"], 1.0)
+    if not (sp["bf16_bg_diff_frac"] == 0.0 and sp["bf16_max_abs_diff"] <= bar):
+        raise AssertionError(f"profile_splat: the bf16 splat moved the background or left "
+                             f"the bar {bar:.4f}: {json.dumps(sp)}")
+
+    grid = [(16, 1024, 64), (32, 2048, 16), (24, 1024, 16)]
+    with _path(report, "tools: tune_splat", ("splat_blend",)):
+        rows = tune_splat.sweep(W, N, 2, grid, 3, device=DEVICE)
+    log("[tools] tune_splat.sweep (bench protocol, reps 3): " + json.dumps(rows))
+    if not (rows[1]["max_abs_delta"] == 0.0 and rows[1]["bg_delta_frac"] == 0.0
+            and str(rows[3]["ms"]).startswith("failed")
+            and isinstance(rows[2]["ms"], float)):
+        raise AssertionError("tune_splat: a tile_group-only row must equal the default, "
+                             "tile 24 must be refused, tile 32 must run")
+
+    with _path(report, "tools: sweep_speculative", ("lmconv_up", "lmconv_down")):
+        spec_rows = sweep_speculative.sweep_speculative((4, 12), 16, 2, cfg=cfg,
+                                                        device=DEVICE)
+    for r in spec_rows:
+        if not 1 <= r["cells_per_fwd"] <= r["spec"] + 1:
+            raise AssertionError(f"sweep_speculative: {r}")
+
+    ps = PixelSynth.from_stitched(os.path.join(REPO, "evidence/relay/stitched.npz"),
+                                  device=DEVICE)
+    world, _, _ = heldout_demo_world(ps.W)
+    with _path(report, "tools: scene_drift", K1K2):
+        dr = scene_drift.drift(ps, world, configs=["fixed"], num_samples=4, num_split=2,
+                               directions=["R", "L"],
+                               out=os.path.join(out_dir, "scene_drift.json"))
+    fixed = dr["fixed"]
+    log("[tools] scene_drift (stitched.npz, fixed, R and L, num_split 2): " + json.dumps(
+        {k: v for k, v in fixed.items() if k != "records"}))
+    if fixed["n_views_scored"] != 6 or not np.isfinite(fixed["scene_gt_psnr"]):
+        raise AssertionError("scene_drift scored no finite walk")
+    del ps
+
+    # the importer: reference-layout files at the Config() widths
+    base = PixelSynth(cfg, device=DEVICE, seed=0)
+    t0 = time.perf_counter()
+    files = _reference_files(base, os.path.join(out_dir, "reference"))
+    sds = import_reference_ckpt.import_from_files(base, **files)
+    del base
+    ps = PixelSynth(cfg, device=DEVICE, state_dicts=sds, with_classifier=True)
+    log(f"[tools] import_reference_ckpt: {sorted(sds)} from three reference-layout files "
+        f"in {time.perf_counter() - t0:.1f} s")
+    img, cams = _view_inputs(cfg.model.W)
+    _, RT = get_rt_from_rot("R", cams["P"], scene_mode=False, rotation=0.3)
+    view_cams = {"K": cams["K"], "Kinv": cams["Kinv"], "P_in": cams["P"],
+                 "Pinv_in": cams["Pinv"], "P_out": RT}
+    gen = SceneGenerator(ps, num_samples=view_samples)
+    with _path(report, "tools: imported checkpoint view", K1K2):
+        best, out = gen.generate_view(img, view_cams,
+                                      CloudState.empty(1, cfg.model.W ** 2, 3, DEVICE),
+                                      None, cams["Pinv"], 3)
+    n_bg = int((out["bg_ds"] >= 1 - 1e-6).sum())
+    log(f"[tools] imported checkpoint: one default view, {n_bg} background cells, range "
+        f"[{float(best.min()):.3f}, {float(best.max()):.3f}]")
+    if not (bool(torch.isfinite(best).all()) and float(best.abs().max()) <= 1.0
+            and tuple(best.shape) == (1, cfg.model.W, cfg.model.W, 3) and n_bg > 0):
+        raise AssertionError("the imported checkpoint's view is not a finite image in "
+                             "[-1, 1] with cells to outpaint")
+    x = torch.as_tensor(img, device=DEVICE)
+    K = torch.as_tensor(cams["K"], dtype=torch.float32, device=DEVICE)
+    Kinv = torch.as_tensor(cams["Kinv"], dtype=torch.float32, device=DEVICE)
+    RTs = nerf_like_circle(4)
+    views = {}
+    for dt in ("float32", "bfloat16"):
+        ps.cfg.model.splat.blend_dtype = dt
+        names = ("splat_blend_bf16",) if dt == "bfloat16" else ("splat_blend",)
+        with _path(report, f"tools: forward_angle {dt} (imported)", names):
+            views[dt] = ps.forward_angle(x, K, Kinv, RTs,
+                                         gen=torch.Generator(device=DEVICE).manual_seed(5))
+    ps.cfg.model.splat.blend_dtype = "float32"
+    diffs = [(a - b).abs() for a, b in zip(views["float32"], views["bfloat16"])]
+    log(f"[tools] forward_angle bf16 against f32 on the imported checkpoint, 4 views: "
+        f"max |diff| {max(float(d.max()) for d in diffs):.3e}, mean "
+        f"{float(torch.stack([d.mean() for d in diffs]).mean()):.3e}")
+    if not all(bool(torch.isfinite(v).all()) and float(v.abs().max()) <= 1.0
+               for v in views["bfloat16"]):
+        raise AssertionError("forward_angle with the bf16 blend is not finite in [-1, 1]")
+    del ps, gen
+
+    # the exporter: a VGG19-layout stack round trip through the loader
+    from pixelsynth_tpu_torch.models.losses import VGG19Features, load_torch_vgg19
+    from pixelsynth_tpu_torch.weights import merge_collections
+
+    g = torch.Generator().manual_seed(0)
+    layers, cin = [], 3
+    for c in [64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
+              512, 512, 512, 512, "M", 512, 512, 512, 512, "M"]:
+        if c == "M":
+            layers.append(torch.nn.MaxPool2d(2))
+            continue
+        conv = torch.nn.Conv2d(cin, c, 3, padding=1)
+        with torch.no_grad():
+            conv.weight.copy_(torch.randn(conv.weight.shape, generator=g))
+        layers += [conv, torch.nn.ReLU()]
+        cin = c
+    seq = torch.nn.Sequential(*layers)
+    path = os.path.join(out_dir, "vgg19_features.npz")
+    export_torch_weights.export_features(seq, path)
+    vgg = VGG19Features()
+    vgg.load_flax(merge_collections(load_torch_vgg19(path)))
+    theirs = [m.weight for m in seq if isinstance(m, torch.nn.Conv2d)]
+    ours = [p for n, p in vgg.named_parameters() if n.endswith("weight")]
+    if not ours or not all(torch.equal(a, b) for a, b in zip(ours, theirs)):
+        raise AssertionError("export_features -> load_torch_vgg19 did not round-trip")
+    log(f"[tools] export_torch_weights: {len(theirs)} VGG19 convs round-tripped through "
+        f"load_torch_vgg19 ({len(ours)} read)")
+    log(f"[tools] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv):
     try:
         import torch
@@ -3205,6 +3578,7 @@ def main(argv):
     report = {}
     phase_k1(report)
     phase_k2(report)
+    phase_k2_bf16(report)
     phase_k3(report)
     phase_k4(report)
     phase_k5(report)
@@ -3227,6 +3601,7 @@ def main(argv):
         phase_relay_chain(report)
         phase_datasets(report)
         phase_parallel(report)
+        phase_tools(report)
     log(f"[total] {time.perf_counter() - t0:.1f} s")
     keys = ["name", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

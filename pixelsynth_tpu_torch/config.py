@@ -18,7 +18,9 @@ each value selects on the card:
   * `splat.sort_backend` (argsort binning): "xla" = one library sort over
     the whole batch; "pallas" = per-image keys sorted by the hand-written
     kernel K5 (ops/sort_kernel.py) while an image's entries fit it;
-  * `splat.blend_dtype`: "float32" only;
+  * `splat.blend_dtype`: "float32" = K2 reads f32 features; "bfloat16" =
+    the features and each slot's weight rounded to bf16, the sums f32
+    (K2's bf16 entry on the card);
   * `lmconv.sample_backend`: "fused" = the fused forward K1
     (ops/lmconv_fused.py) under the speculative sampler; "pallas" = the
     per-layer module with every masked conv through kernel K3

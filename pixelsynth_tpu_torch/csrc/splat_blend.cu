@@ -59,7 +59,31 @@
 // 3.35 TB/s) against the covered pixel x slot pairs (~9% of the pixel x
 // valid-slot pairs) at ~21 fp32 flops each (chip_smoke.py counts both on
 // its inputs).
+//
+// bf16 features (`splat.blend_dtype="bfloat16"`, the XLA blend's
+// `w.astype(feats.dtype) @ feats` with an f32 accumulator, splat.py
+// :438-441,480-481): the second entry, `splat_blend_bf16`, reads bf16
+// feature rows and widens them to f32 as they are staged (16-byte loads of
+// a group's 8 channels where a row is a multiple of 16 bytes, as at C = 64;
+// 2-byte loads otherwise, as at C = 3, whose 6-byte rows sit at any even
+// address), and rounds each slot's weight to bf16 (round to nearest even)
+// before its multiply-add.  A bf16 x bf16 product is exact in f32, so the
+// sums are the function's f32 sums.  Alpha, transmittance and coverage are
+// the f32 body's, so the coverage is bit-equal to the f32 entry's.  A
+// weight within an f32 ulp of a bf16 rounding boundary rounds the other way
+// wherever the weight's f32 value differs by an ulp, so both entries round
+// the distance as the plain version does (no contraction into an FMA), and
+// alpha takes the NDC scale folded into one multiply, which is exact where
+// W and the radius are powers of two (the default sizes).  Under
+// wsumnorm the XLA blend rounds alpha / max(sum alpha, 1e-4), which needs
+// the pixel's whole sum before its first weight: the bf16 entry walks the
+// slots twice, the first walk summing the kept alphas (the f32 entry
+// normalises once at the end instead).  That sum is taken in f64 and
+// rounded once to f32, as the plain version takes it: an f32 sum in
+// another order moves the denominator by an ulp, which rounds about one
+// weight in 30000 to the other bf16 neighbour.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -81,12 +105,40 @@ struct Params {
   float tau;
   int pp_pixel;
   int accum;
+  int vec;         // bf16 rows: a group's 8 channels as one 16-byte load
 };
 
-template <bool GROUPS>
+// a slot's Cg (<= MAXC) channels from channel c0 of its feature row, as f32
+__device__ __forceinline__ void load_row(const float* fb, long long li, int C, int c0,
+                                         int Cg, int, float* lf) {
+#pragma unroll
+  for (int c = 0; c < MAXC; ++c)
+    if (c < Cg) lf[c] = fb[li * C + c0 + c];
+}
+
+__device__ __forceinline__ void load_row(const __nv_bfloat16* fb, long long li, int C,
+                                         int c0, int Cg, int vec, float* lf) {
+  const __nv_bfloat16* row = fb + li * C + c0;
+  if (vec) {   // C % 8 == 0 and a 16-byte aligned base: Cg == 8
+    const uint4 v = *reinterpret_cast<const uint4*>(row);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < MAXC / 2; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      lf[2 * i] = f.x;
+      lf[2 * i + 1] = f.y;
+    }
+    return;
+  }
+#pragma unroll
+  for (int c = 0; c < MAXC; ++c)
+    if (c < Cg) lf[c] = __bfloat162float(row[c]);
+}
+
+template <typename T, bool GROUPS>
 __global__ void __launch_bounds__(1024)
 blend_kernel(const float* __restrict__ pts,        // (B, N, 3)
-             const float* __restrict__ feats,      // (B, N, C)
+             const T* __restrict__ feats,          // (B, N, C) f32 or bf16
              const long long* __restrict__ slot,   // (B, nT, M) point index
              const uint8_t* __restrict__ valid,    // (B, nT, M)
              float* __restrict__ out,              // (B, W, W, C)
@@ -133,7 +185,8 @@ blend_kernel(const float* __restrict__ pts,        // (B, N, 3)
   const int ch = blockDim.x < CH ? blockDim.x : CH;
   const bool loader = threadIdx.x < ch;
   const float* pb = pts + (size_t)b * P.N * 3;
-  const float* fb = feats + (size_t)b * P.N * C;
+  const T* fb = feats + (size_t)b * P.N * C;
+  constexpr bool BF16 = sizeof(T) == 2;
   long long li = 0;   // the next chunk's point index and valid flag
   bool lv = false;
   float lx, ly, lf[MAXC];   // the next chunk's slot of this thread
@@ -150,9 +203,7 @@ blend_kernel(const float* __restrict__ pts,        // (B, N, 3)
     if (lv) {
       lx = pb[li * 3];
       ly = pb[li * 3 + 1];
-#pragma unroll
-      for (int c = 0; c < MAXC; ++c)
-        if (c < Cg) lf[c] = fb[li * C + c0 + c];
+      load_row(fb, li, C, c0, Cg, P.vec, lf);
     }
   };
   auto stage = [&](int buf) {
@@ -169,6 +220,9 @@ blend_kernel(const float* __restrict__ pts,        // (B, N, 3)
   float trans = 1.f, asum = 0.f;
   int count = 0;
   bool covered = false;
+  bool sum_only = false;   // the bf16 wsumnorm's first walk: the alphas' sum,
+  double asum_d = 0.0;     // in f64 (rounded once to f32, as the plain version's),
+  float denom = 1.f;       // and its max(sum, 1e-4) for the second walk
   // slot j of buffer buf onto this lane's pixel, given its distance^2 and
   // alpha: the per-slot step of _blend_tiles' front-to-back walk
   auto blend = [&](float d2, float alpha, const float4& f0, const float4& f1) {
@@ -176,7 +230,15 @@ blend_kernel(const float* __restrict__ pts,        // (B, N, 3)
     covered = true;
     ++count;
     if (count > P.pp_pixel) return;
-    const float w = (P.accum == ALPHACOMPOSITE) ? alpha * trans : alpha;
+    if (BF16 && sum_only) {
+      asum_d += (double)alpha;
+      return;
+    }
+    float w = (P.accum == ALPHACOMPOSITE) ? alpha * trans : alpha;
+    if (BF16) {   // the weight rounded to the features' type
+      if (P.accum == WSUMNORM) w = __fdiv_rn(w, denom);
+      w = __bfloat162float(__float2bfloat16_rn(w));
+    }
     const float f[MAXC] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w};
 #pragma unroll
     for (int c = 0; c < MAXC; ++c)
@@ -191,65 +253,100 @@ blend_kernel(const float* __restrict__ pts,        // (B, N, 3)
     return alpha;
   };
 
-  if (n > 0) {
-    fetch_index(0);
-    fetch_point();
-    stage(0);
-    fetch_index(ch);
-  }
-  __syncthreads();
-  for (int j0 = 0, buf = 0; j0 < n; j0 += ch, buf ^= 1) {
-    const bool more = j0 + ch < n;
-    if (more) {                   // in flight while this chunk is blended
-      fetch_point();              // chunk k + 1, by the indices loaded before
-      fetch_index(j0 + 2 * ch);   // chunk k + 2
+  // one walk over the tile's slots (every thread of the block calls it)
+  auto walk = [&]() {
+    if (n > 0) {
+      fetch_index(0);
+      fetch_point();
+      stage(0);
+      fetch_index(ch);
     }
-    const int m = min(ch, n - j0);
-    for (int g = 0; g < m; g += 32) {
-      bool hit = false;
-      if (g + lane < m) {
-        const float2 q = sxy[buf][g + lane];
-        const float ex = fmaxf(fmaxf(c_lo - q.x, q.x - c_hi), 0.f);
-        const float ey = fmaxf(fmaxf(r_lo - q.y, q.y - r_hi), 0.f);
-        hit = __fadd_rn(__fmul_rn(ex, ex), __fmul_rn(ey, ey)) <= P.r2_cull;
-      }
-      // the set bits WALK at a time: their loads, distances and alphas
-      // are independent, their blends run in z order
-      uint32_t todo = __ballot_sync(0xffffffffu, hit);
-      while (todo) {
-        int js[WALK];
-        bool has[WALK];
-#pragma unroll
-        for (int u = 0; u < WALK; ++u) {
-          has[u] = todo != 0;
-          js[u] = has[u] ? g + __ffs(todo) - 1 : g;
-          todo &= todo - 1;
-        }
-        float d2[WALK], al[WALK];
-        float4 f0[WALK], f1[WALK];
-#pragma unroll
-        for (int u = 0; u < WALK; ++u) {
-          const float2 q = sxy[buf][js[u]];
-          const float dx = col - q.x, dy = row - q.y;
-          d2[u] = dx * dx + dy * dy;
-          al[u] = alpha_of(d2[u]);
-          f0[u] = sf[buf][js[u]][0];
-          f1[u] = Cg > 4 ? sf[buf][js[u]][1] : make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-#pragma unroll
-        for (int u = 0; u < WALK; ++u)
-          if (has[u]) blend(d2[u], al[u], f0[u], f1[u]);
-      }
-    }
-    if (more) stage(buf ^ 1);   // that buffer's chunk was blended before the last barrier
     __syncthreads();
+    for (int j0 = 0, buf = 0; j0 < n; j0 += ch, buf ^= 1) {
+      const bool more = j0 + ch < n;
+      if (more) {                   // in flight while this chunk is blended
+        fetch_point();              // chunk k + 1, by the indices loaded before
+        fetch_index(j0 + 2 * ch);   // chunk k + 2
+      }
+      const int m = min(ch, n - j0);
+      for (int g = 0; g < m; g += 32) {
+        bool hit = false;
+        if (g + lane < m) {
+          const float2 q = sxy[buf][g + lane];
+          const float ex = fmaxf(fmaxf(c_lo - q.x, q.x - c_hi), 0.f);
+          const float ey = fmaxf(fmaxf(r_lo - q.y, q.y - r_hi), 0.f);
+          hit = __fadd_rn(__fmul_rn(ex, ex), __fmul_rn(ey, ey)) <= P.r2_cull;
+        }
+        // the set bits WALK at a time: their loads, distances and alphas
+        // are independent, their blends run in z order
+        uint32_t todo = __ballot_sync(0xffffffffu, hit);
+        while (todo) {
+          int js[WALK];
+          bool has[WALK];
+  #pragma unroll
+          for (int u = 0; u < WALK; ++u) {
+            has[u] = todo != 0;
+            js[u] = has[u] ? g + __ffs(todo) - 1 : g;
+            todo &= todo - 1;
+          }
+          float d2[WALK], al[WALK];
+          float4 f0[WALK], f1[WALK];
+  #pragma unroll
+          for (int u = 0; u < WALK; ++u) {
+            const float2 q = sxy[buf][js[u]];
+            const float dx = col - q.x, dy = row - q.y;
+            // rounded as the plain version rounds it (no contraction), so
+            // both entries' coverage is the same and equals the plain one
+            d2[u] = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+            al[u] = alpha_of(d2[u]);
+            f0[u] = sf[buf][js[u]][0];
+            f1[u] = Cg > 4 ? sf[buf][js[u]][1] : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+  #pragma unroll
+          for (int u = 0; u < WALK; ++u)
+            if (has[u]) blend(d2[u], al[u], f0[u], f1[u]);
+        }
+      }
+      if (more) stage(buf ^ 1);   // that buffer's chunk was blended before the last barrier
+      __syncthreads();
+    }
+  };
+  if (BF16 && P.accum == WSUMNORM) {   // every thread has passed the last barrier
+    sum_only = true;
+    walk();
+    denom = fmaxf((float)asum_d, 1e-4f);
+    sum_only = covered = false;
+    count = 0;
   }
-  const float norm = (P.accum == WSUMNORM) ? 1.f / fmaxf(asum, 1e-4f) : 1.f;
+  walk();
+  const float norm = (!BF16 && P.accum == WSUMNORM) ? 1.f / fmaxf(asum, 1e-4f) : 1.f;
   const size_t p = ((size_t)b * P.W + row0 + pr) * P.W + col0 + pc;
 #pragma unroll
   for (int c = 0; c < MAXC; ++c)
     if (c < Cg) out[p * C + c0 + c] = acc[c] * norm;
   if (!GROUPS || blockIdx.y == 0) cov[p] = covered ? 1 : 0;
+}
+
+}  // namespace
+
+namespace {
+
+template <typename T>
+int launch(const void* pts, const void* feats, const void* slot, const void* valid,
+           void* out, void* cov, int B, int N, int W, int M, int C, int TS, float r2,
+           float dscale, float tau, int pp_pixel, int accum, void* stream) {
+  if (C < 1 || TS % RW != 0 || TS % RH != 0 || TS > 32 || W % TS != 0)
+    return (int)cudaErrorInvalidValue;
+  const int nside = W / TS;
+  const int vec = sizeof(T) == 2 && C % MAXC == 0 && (uintptr_t)feats % 16 == 0;
+  Params P = {N, nside * nside, nside, M, C, TS, W, r2, r2 * (1.f + 1e-6f), dscale, tau,
+              pp_pixel, accum, vec};
+  const dim3 grid(B * P.nT, (C + MAXC - 1) / MAXC);
+  auto kernel = C <= MAXC ? blend_kernel<T, false> : blend_kernel<T, true>;
+  kernel<<<grid, TS * TS, 0, (cudaStream_t)stream>>>(
+      (const float*)pts, (const T*)feats, (const long long*)slot,
+      (const uint8_t*)valid, (float*)out, (uint8_t*)cov, P);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -262,15 +359,16 @@ extern "C" int splat_blend(const void* pts, const void* feats, const void* slot,
                            const void* valid, void* out, void* cov, int B, int N, int W,
                            int M, int C, int TS, float r2, float dscale, float tau,
                            int pp_pixel, int accum, void* stream) {
-  if (C < 1 || TS % RW != 0 || TS % RH != 0 || TS > 32 || W % TS != 0)
-    return (int)cudaErrorInvalidValue;
-  const int nside = W / TS;
-  Params P = {N, nside * nside, nside, M, C, TS, W, r2, r2 * (1.f + 1e-6f), dscale, tau,
-              pp_pixel, accum};
-  const dim3 grid(B * P.nT, (C + MAXC - 1) / MAXC);
-  auto kernel = C <= MAXC ? blend_kernel<false> : blend_kernel<true>;
-  kernel<<<grid, TS * TS, 0, (cudaStream_t)stream>>>(
-      (const float*)pts, (const float*)feats, (const long long*)slot,
-      (const uint8_t*)valid, (float*)out, (uint8_t*)cov, P);
-  return (int)cudaGetLastError();
+  return launch<float>(pts, feats, slot, valid, out, cov, B, N, W, M, C, TS, r2, dscale,
+                       tau, pp_pixel, accum, stream);
+}
+
+// The same with feats (B, N, C) bf16: each weight rounded to bf16, the sums
+// f32, out f32.
+extern "C" int splat_blend_bf16(const void* pts, const void* feats, const void* slot,
+                                const void* valid, void* out, void* cov, int B, int N,
+                                int W, int M, int C, int TS, float r2, float dscale,
+                                float tau, int pp_pixel, int accum, void* stream) {
+  return launch<__nv_bfloat16>(pts, feats, slot, valid, out, cov, B, N, W, M, C, TS, r2,
+                               dscale, tau, pp_pixel, accum, stream);
 }

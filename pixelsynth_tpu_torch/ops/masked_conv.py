@@ -1,11 +1,14 @@
 """The locally masked convolution in plain, differentiable PyTorch, and the
 PixelCNN's embedding-gather first layer (port of
-pixelsynth_tpu/ops/masked_conv.py: `locally_masked_conv2d`, :44-88, and
-`locally_masked_embed`, :145-200).
+pixelsynth_tpu/ops/masked_conv.py: `unfold_patches`, :23-41,
+`locally_masked_conv2d`, :44-88, `locally_masked_conv2d_fused`, :91-142,
+and `locally_masked_embed`, :145-200).
 
 `locally_masked_conv2d` is what `sample_backend="xla"` runs and what the
 kernels' plain versions are tested against.  The restructured
-`locally_masked_conv2d_fused` (:91-142) has no caller in the port yet."""
+`locally_masked_conv2d_fused` (one matmul, then k^2 shifted slices) is
+selected by no path, as in the JAX package, which computes it in XLA
+outside any Pallas kernel."""
 
 from __future__ import annotations
 
@@ -30,6 +33,16 @@ def shifted_taps(x: torch.Tensor, k: int, dilation: int) -> List[torch.Tensor]:
     xp = F.pad(x, (0, 0, pad, pad, pad, pad))
     return [xp[:, pad + dr:pad + dr + H, pad + dc:pad + dc + W]
             for dr, dc in tap_offsets(k, dilation)]
+
+
+def unfold_patches(x: torch.Tensor, k: int, dilation: int = 1) -> torch.Tensor:
+    """k x k patches: (B, H, W, C) -> (B, H, W, C, k*k), channel-major as
+    `conv_general_dilated_patches` orders them (index c * k*k + tap, taps
+    row-major), 'SAME' padding dilation * (k - 1) // 2."""
+    B, H, W, C = x.shape
+    cols = F.unfold(x.permute(0, 3, 1, 2), k, dilation=dilation,
+                    padding=dilation * (k - 1) // 2)       # (B, C*k*k, H*W)
+    return cols.reshape(B, C, k * k, H, W).permute(0, 3, 4, 1, 2)
 
 
 def mask_rows(mask: torch.Tensor, B: int, H: int, W: int) -> torch.Tensor:
@@ -67,6 +80,43 @@ def locally_masked_conv2d(x: torch.Tensor, mask: torch.Tensor,
     if bias is not None:
         out = out + bias
     return out.float()
+
+
+def locally_masked_conv2d_fused(x: torch.Tensor, mask: torch.Tensor,
+                                weight: torch.Tensor,
+                                bias: Optional[torch.Tensor] = None,
+                                mask_weight: Optional[torch.Tensor] = None, *,
+                                dilation: int = 1,
+                                compute_dtype: Optional[torch.dtype] = None
+                                ) -> torch.Tensor:
+    """The same op as `locally_masked_conv2d`, restructured:
+
+      out[p] = sum_t mask_t[p] * (x W_t)[p + off_t]
+
+    one (BHW, Cin) @ (Cin, k^2 * Cout) product gives every tap's term at
+    every position, then k^2 shifted slices of it are mask-scaled and
+    summed, with no (B, H, W, Cin, k^2) patch tensor.  With compute_dtype
+    the operands are rounded to it and the products summed in f32.
+    Returns (B, H, W, Cout) f32."""
+    B, H, W, _ = x.shape
+    K2, _, Cout = weight.shape
+    k = int(round(K2 ** 0.5))
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+        weight = weight.to(compute_dtype)
+    z = torch.einsum("bhwc,tcf->bhwtf", x.float(), weight.float())
+    pad = (k // 2) * dilation
+    zp = F.pad(z, (0, 0, 0, 0, pad, pad, pad, pad))
+    m = mask_rows(mask, B, H, W).float()
+    out = torch.zeros((B, H, W, Cout), dtype=torch.float32, device=x.device)
+    for t, (dr, dc) in enumerate(tap_offsets(k, dilation)):
+        zt = zp[:, pad + dr:pad + dr + H, pad + dc:pad + dc + W, t]
+        out = out + m[..., t, None] * zt
+    if mask_weight is not None:
+        out = out + torch.einsum("bhwp,po->bhwo", m, mask_weight.float())
+    if bias is not None:
+        out = out + bias
+    return out
 
 
 def locally_masked_embed(codes: torch.Tensor, filled: torch.Tensor,

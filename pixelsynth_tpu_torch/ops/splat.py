@@ -22,6 +22,15 @@ kernel K2 for the blend and kernel K5 for the binning sort.
      version, `gather_slots` then `blend_tiles_plain` = `_blend_tiles`).
   3. The background mask is the dilated (max-filtered) uncovered map.
 
+`blend_dtype="bfloat16"` (splat.py:438-441,480-481): the features are
+rounded to bf16 once, before the per-tile gathers, and each slot's weight
+(alpha x exclusive transmittance, alpha, or alpha / sum alpha) is rounded
+to bf16 before the contraction, whose sums stay f32 (a bf16 x bf16
+product is exact in f32).  Alpha, z and coverage stay f32, so the
+background mask is the f32 blend's bit for bit.  On the card K2's bf16
+entry (`splat_blend_bf16`) reads the bf16 rows; the plain version rounds
+with `.to(torch.bfloat16)` where the JAX package casts.
+
 Under a gradient (`blend_slots` with points or feats that require grad)
 the blend is `_SplatBlendFn`, after the JAX package's `splat_pallas`
 (ops/splat_pallas.py:193-251): the forward is the same K2 launch, the
@@ -44,9 +53,18 @@ import torch.nn.functional as F
 from pixelsynth_tpu_torch.config import SplatConfig
 from pixelsynth_tpu_torch.ops import _cuda
 
-LAUNCHES = {"splat_blend": 0}
+LAUNCHES = {"splat_blend": 0, "splat_blend_bf16": 0}
 PLAIN_CALLS = {"splat_blend": 0}   # calls that took the plain version (CPU)
 _ACCUM = {"alphacomposite": 0, "wsum": 1, "wsumnorm": 2}
+BLEND_DTYPES = ("float32", "bfloat16")
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (nearest even), kept in x's dtype: JAX's
+    `astype(bfloat16)` followed by the f32 contraction's widening.  Under
+    autograd the gradient is rounded to bf16 too, as `jax.grad` through
+    the cast computes it."""
+    return x.to(torch.bfloat16).to(x.dtype)
 
 
 def _alpha_consts(W: int, cfg: SplatConfig) -> Tuple[float, float]:
@@ -294,7 +312,9 @@ def blend_tiles_plain(slot_pts, slot_feats, slot_valid, tile_origin, W: int,
 
     slot_pts (T, M, >=2); slot_feats (T, M, C); slot_valid (T, M) bool;
     tile_origin (T, 2) [row0, col0].  Returns (out (T, TS, TS, C) f32,
-    covered (T, TS, TS) bool)."""
+    covered (T, TS, TS) bool).  With blend_dtype "bfloat16" the features
+    and the weights are rounded to bf16 and multiplied and summed in f32."""
+    bf16 = cfg.blend_dtype == "bfloat16"
     TS = cfg.tile_size
     P = TS * TS
     dev = slot_pts.device
@@ -305,6 +325,8 @@ def blend_tiles_plain(slot_pts, slot_feats, slot_valid, tile_origin, W: int,
     for g0 in range(0, slot_pts.shape[0], G):
         pts = slot_pts[g0:g0 + G]
         fts = slot_feats[g0:g0 + G] * slot_valid[g0:g0 + G, :, None]
+        if bf16:
+            fts = round_bf16(fts)
         vm = slot_valid[g0:g0 + G]
         org = tile_origin[g0:g0 + G]
         rows = py[None] + org[:, 0:1]
@@ -323,9 +345,16 @@ def blend_tiles_plain(slot_pts, slot_feats, slot_valid, tile_origin, W: int,
         elif cfg.accumulation == "wsum":
             w = alpha
         elif cfg.accumulation == "wsumnorm":
-            w = alpha / torch.clamp(alpha.sum(2, keepdim=True), min=1e-4)
+            # under bf16 the sum is taken in f64 and rounded once, so that
+            # its value does not depend on the order of a reduction (an ulp
+            # of the denominator moves the weights' bf16 rounding)
+            total = (alpha.sum(2, keepdim=True, dtype=torch.float64).to(alpha.dtype)
+                     if bf16 else alpha.sum(2, keepdim=True))
+            w = alpha / torch.clamp(total, min=1e-4)
         else:
             raise ValueError(f"unknown accumulation {cfg.accumulation}")
+        if bf16:
+            w = round_bf16(w)
         outs.append((w @ fts).reshape(-1, TS, TS, fts.shape[-1]))
         covs.append(cover.any(2).reshape(-1, TS, TS))
     return torch.cat(outs), torch.cat(covs)
@@ -355,8 +384,9 @@ def _splat_lib():
     lib = _cuda.load("splat_blend")
     if not getattr(lib, "_typed", False):
         P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.splat_blend.argtypes = [P] * 6 + [I] * 6 + [Fl] * 3 + [I] * 2 + [P]
-        lib.splat_blend.restype = I
+        for fn in (lib.splat_blend, lib.splat_blend_bf16):
+            fn.argtypes = [P] * 6 + [I] * 6 + [Fl] * 3 + [I] * 2 + [P]
+            fn.restype = I
         lib._typed = True
     return lib
 
@@ -469,10 +499,12 @@ class _SplatBlendFn(torch.autograd.Function):
 
 def blend_slots_kernel(points, feats, slot_idx, slot_valid, W: int, cfg: SplatConfig):
     """One launch of the CUDA kernel (csrc/splat_blend.cu), which gathers
-    the slots' points itself: points and feats f32, any C >= 1 (the grid
-    runs ceil(C / 8) channel groups, each walking the tile's slots);
-    slot_idx int64; tile_size a multiple of 8 up to 32.  Takes no
-    gradient: under one, `blend_slots` runs it inside `_SplatBlendFn`."""
+    the slots' points itself: points f32, any C >= 1 (the grid runs
+    ceil(C / 8) channel groups, each walking the tile's slots); slot_idx
+    int64; tile_size a multiple of 8 up to 32.  feats are cast once to
+    f32, or with blend_dtype "bfloat16" to bf16 for the bf16 entry
+    (`splat_blend_bf16`, counted under that name).  Takes no gradient:
+    under one, `blend_slots` runs it inside `_SplatBlendFn`."""
     if torch.is_grad_enabled() and (points.requires_grad or feats.requires_grad):
         raise ValueError("blend_slots_kernel has no gradient: use blend_slots")
     B, N, _ = points.shape
@@ -482,14 +514,17 @@ def blend_slots_kernel(points, feats, slot_idx, slot_valid, W: int, cfg: SplatCo
     M = slot_idx.shape[-1]
     dev = points.device
     if (C < 1 or TS % 8 or TS > 32 or W % TS
-            or cfg.accumulation not in _ACCUM):
+            or cfg.accumulation not in _ACCUM or cfg.blend_dtype not in BLEND_DTYPES):
         raise ValueError(f"K2 takes C >= 1, a tile size that is a multiple of 8 "
-                         f"up to 32 and dividing W, one of {list(_ACCUM)}; got "
-                         f"C={C}, tile_size={TS}, W={W}, {cfg.accumulation!r}")
+                         f"up to 32 and dividing W, one of {list(_ACCUM)}, one of "
+                         f"{BLEND_DTYPES}; got C={C}, tile_size={TS}, W={W}, "
+                         f"{cfg.accumulation!r}, {cfg.blend_dtype!r}")
+    bf16 = cfg.blend_dtype == "bfloat16"
+    fdt = torch.bfloat16 if bf16 else torch.float32
     points = points.float().contiguous()
-    feats = feats.float().contiguous()
+    feats = feats.to(fdt).contiguous()
     _cuda.require(points, "points", dtype=torch.float32, shape=(B, N, 3))
-    _cuda.require(feats, "feats", dtype=torch.float32, shape=(B, N, C), device=dev)
+    _cuda.require(feats, "feats", dtype=fdt, shape=(B, N, C), device=dev)
     _cuda.require(slot_idx, "slot_idx", dtype=torch.int64, shape=(B, nT, M),
                   device=dev)
     _cuda.require(slot_valid, "slot_valid", dtype=torch.bool, shape=(B, nT, M),
@@ -498,24 +533,26 @@ def blend_slots_kernel(points, feats, slot_idx, slot_valid, W: int, cfg: SplatCo
     cov = torch.empty((B, W, W), dtype=torch.bool, device=dev)
     ss, denom = _alpha_consts(W, cfg)
     P = _cuda.ptr
-    rc = _splat_lib().splat_blend(
+    name = "splat_blend_bf16" if bf16 else "splat_blend"
+    rc = getattr(_splat_lib(), name)(
         P(points), P(feats), P(slot_idx), P(slot_valid), P(out), P(cov), B, N, W, M,
         C, TS, float(cfg.radius * cfg.radius), ss / denom, float(cfg.tau),
         int(cfg.pp_pixel), _ACCUM[cfg.accumulation], _cuda.stream_of(points))
-    _cuda.check(rc, "splat_blend")
-    LAUNCHES["splat_blend"] += 1
+    _cuda.check(rc, name)
+    LAUNCHES[name] += 1
     return out, cov
 
 
 def splat(points, feats, valid=None, *, W: int, cfg: SplatConfig = None):
     """Splat (B, N, 3) [col, row, depth] points with (B, N, C) features
     into (B, W, W, C) f32 + the (B, W, W) bool background mask (point-free
-    pixels, dilated by the background-smoothing max filter)."""
+    pixels, dilated by the background-smoothing max filter).  The blend
+    reads the features in `cfg.blend_dtype` ("float32" or "bfloat16")."""
     cfg = cfg or SplatConfig()
-    if cfg.blend_dtype != "float32":
+    if cfg.blend_dtype not in BLEND_DTYPES:
         raise NotImplementedError(
             f'splat.blend_dtype={cfg.blend_dtype!r}: the port blends in '
-            '"float32" only')
+            f'{BLEND_DTYPES}')
     B, N, _ = points.shape
     if valid is None:
         valid = torch.ones((B, N), dtype=torch.bool, device=points.device)

@@ -1,7 +1,8 @@
 """Device time of the kernels (K1 up and down, K2, K3, K4, K5), on the card.
 
   python3 -m pixelsynth_tpu_torch.tools.device_times [--only k2,k3]
-      [--k2-save OUT.npz] [--k2-compare REF.npz] [--k3-variant]
+      [--k2-channels 3,64] [--k2-save OUT.npz] [--k2-compare REF.npz]
+      [--k3-variant]
 
 A call of these wrappers is one or a few launches, and the host's work for
 a call can exceed the kernels' time: CUDA events around back-to-back calls
@@ -13,7 +14,8 @@ time of a call, and for K5 beside
 torch.sort(stable=True).  K2 is timed as the checkout has it: the blend
 from the binner's tables with the gather inside (`blend_slots`), or the
 slot gather followed by the blend over the gathered lists; the device time
-of either is the sum of its kernels.  K3's device time likewise includes
+of either is the sum of its kernels, at each of `--k2-channels` feature
+widths (default 3; f32 features, K2's f32 entry).  K3's device time likewise includes
 the cast of x to bf16 where the checkout's wrapper launches one.
 `--k2-save` writes K2's image and coverage in every accumulation (image
 layout) to an npz, `--k2-compare` holds them bit for bit to such a file
@@ -83,6 +85,7 @@ def k2_runs(K2, pts, fts, vld, W, cfg):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default="k1,k2,k3,k4,k5")
+    ap.add_argument("--k2-channels", default="3")
     ap.add_argument("--k2-save")
     ap.add_argument("--k2-compare")
     ap.add_argument("--k3-variant", action="store_true")
@@ -131,23 +134,27 @@ def main(argv=None):
         report("K1 down", lambda: K1.down(stack, mu, md, packed, **kw))
 
     if "k2" in only:
-        W2, pts, fts, vld = cs._k2_inputs(W=256, N=65536 * 2)
-        runs = k2_runs(K2, pts, fts, vld, W2, SplatConfig())
-        report("K2 splat blend, gather included", runs["alphacomposite"])
         got = {}
-        for acc, run in runs.items():
-            img, cov = run()
-            got[f"{acc}_image"] = img.cpu().numpy()
-            got[f"{acc}_coverage"] = cov.cpu().numpy()
+        for C in map(int, args.k2_channels.split(",")):
+            W2, pts, fts, vld = cs._k2_inputs(C=C, W=256, N=65536 * 2)
+            runs = k2_runs(K2, pts, fts, vld, W2, SplatConfig())
+            at = "" if C == 3 else f" at C={C}"
+            report(f"K2 splat blend{at}, gather included", runs["alphacomposite"])
+            suffix = "" if C == 3 else f"_c{C}"
+            for acc, run in runs.items():
+                img, cov = run()
+                got[f"{acc}_image{suffix}"] = img.cpu().numpy()
+                got[f"{acc}_coverage{suffix}"] = cov.cpu().numpy()
         if args.k2_save:
             np.savez(args.k2_save, **got)
         if args.k2_compare:
             ref = np.load(args.k2_compare)
             for k, v in got.items():
                 same = np.array_equal(v.view(np.uint8), ref[k].view(np.uint8))
-                diff = float(np.abs(v.astype(np.float64) - ref[k].astype(np.float64)).max())
+                d = np.abs(v.astype(np.float64) - ref[k].astype(np.float64))
                 print(f"[K2] {k}: bit-identical to {os.path.basename(args.k2_compare)} "
-                      f"{same}, largest difference {diff}", flush=True)
+                      f"{same}, largest difference {float(d.max())}, values that "
+                      f"differ {int((d > 0).sum())} of {d.size}", flush=True)
 
     if "k3" in only:
         k3 = []

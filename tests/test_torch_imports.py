@@ -77,6 +77,14 @@ EVAL_MODULES = [
     "pixelsynth_tpu_torch.train.loop", "pixelsynth_tpu_torch.tools.export_habitat_shards",
     "pixelsynth_tpu_torch.tools.train_scene_classifier",
     "pixelsynth_tpu_torch.tools.stitch_checkpoint", "pixelsynth_tpu_torch.tools.run_relay",
+    # the profiling and tuning tools, the importer and the exporter (the
+    # exporter's torchvision, pytorch_fid and lpips only inside functions)
+    "pixelsynth_tpu_torch.utils.profiling", "pixelsynth_tpu_torch.tools.profile_view",
+    "pixelsynth_tpu_torch.tools.profile_hotspots", "pixelsynth_tpu_torch.tools.profile_splat",
+    "pixelsynth_tpu_torch.tools.tune_splat", "pixelsynth_tpu_torch.tools.sweep_speculative",
+    "pixelsynth_tpu_torch.tools.scene_drift",
+    "pixelsynth_tpu_torch.tools.import_reference_ckpt",
+    "pixelsynth_tpu_torch.tools.export_torch_weights",
 ]
 
 

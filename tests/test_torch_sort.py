@@ -136,7 +136,7 @@ def test_bin_dispatch_above_the_kernel_size_takes_the_batch_sort():
 
 
 @pytest.mark.parametrize("field,value", [("binning", "radix"), ("sort_backend", "cub"),
-                                         ("blend_dtype", "bfloat16")])
+                                         ("blend_dtype", "float16")])
 def test_splat_raises_on_values_the_port_does_not_implement(field, value):
     pts, valid = _points(B=1, N=64)
     cfg = dataclasses.replace(SplatConfig(), **{field: value})
