@@ -37,7 +37,9 @@ prints the final ok line):
      (csrc/custom_order.cu, `phase_orders`) bit for bit against its plain
      version and the host heap on the default view's 32x32 distance grid,
      the relay checkpoint's 16x16 grids and random grids with ties (B = 1
-     and 64), one launch a call, timed beside both;
+     and 64; 48x48, 40x48, 64x64, 99x99; a wide span of distances), one
+     launch a call, timed beside
+     both and beside the floor of a step's links (`order_chain_floor`);
   3. the default path at full width: one `generate_view` at the Config()
      defaults (W=256, 32x32 codes, nr_filters 80, speculative 12) with
      seeded random weights and 16 candidates (K1, K2, the order kernel),
@@ -63,8 +65,9 @@ prints the final ok line):
      batteries with seeded random PercSim / LPIPS / InceptionV3 networks
      on the card; K1, K2), its PSNR held to the in-memory views' and its
      networks to the same modules on the CPU; then `phase_angle`: K2 at
-     C = 9 and 64 against its plain version (a view's own points and
-     points on the radius, one launch a call) and one backward at C = 64,
+     C = 9, 24, 64 and 72 (64 and 72 also with tiles of 8 and 32) against
+     its plain version (a view's own points and points on the radius, one
+     launch a call) and one backward at C = 64,
      `forward_angle` on that checkpoint over nerf_like_circle(8) (one K2
      launch a view, the views against the CPU run), the encoder
      composition at the Config() widths (64-wide features through K2 into
@@ -381,19 +384,28 @@ def device_kernels(fn, reps=10):
     """The device kernels of `reps` calls of fn, from torch.profiler:
     ({kernel name: launches}, device us per call: their time over the
     launches seen, times launches per call, {wrapper count: launches} the
-    wrappers counted in the same `reps` calls)."""
+    wrappers counted in the same `reps` calls).  The profiler drops some of
+    a window's kernel records (2 of 10 seen is common) and has once
+    recorded none at all of ten launches whose outputs were checked: a
+    window that records no device kernel is profiled again, up to three
+    windows, and the wrappers' counts are those of the window returned."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    before = read_launches()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    counted = {k: v - before[k] for k, v in read_launches().items() if v != before[k]}
-    hits = [e for e in prof.key_averages() if e.device_time_total > 0]
+    for _ in range(3):
+        before = read_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        counted = {k: v - before[k] for k, v in read_launches().items() if v != before[k]}
+        hits = [e for e in prof.key_averages() if e.device_time_total > 0]
+        if hits:
+            break
+        log(f"[profiler] no device kernel recorded in {reps} calls "
+            f"(wrapper launches {json.dumps(counted)}): profiling another window")
     n = sum(e.count for e in hits)
     per_call = max(1, round(n / reps))
     return ({e.key: e.count for e in hits},
@@ -804,20 +816,24 @@ def _view_points(W=256, B=2, seed=11, frame=1):
     return homogeneous_to_pixels(cloud, W)
 
 
-def k2_wide_check(C, W=256, reps=10, timed=False):
-    """K2 at C feature channels (C > 8: ceil(C / 8) channel groups in the
-    one launch) against its plain version, alphacomposite: on a view's own
-    points (W=256, 2 images x 65536) and on points at the radius from the
-    edges of the warps' rectangles (`_radius_edge_points`), to 1e-5 of the
-    output's scale with the coverage identical; exactly `reps` launches in
-    `reps` calls by the wrapper and at most `reps` by the profiler.  With
-    `timed`, -> {err, ms, plain_ms, device_us, t_ops, t_bytes} of the
-    view's points."""
+def k2_wide_check(C, W=256, reps=10, timed=False, tile=16):
+    """K2 at C feature channels (C > 8: the wide body, one walk a tile and
+    the product on the tensor cores; above 64 channels each block takes 64
+    of them) and tiles of `tile` pixels (8: a block of two warps; 32: a
+    tile's rectangles split over four blocks) against its plain version,
+    alphacomposite: on a view's own points (W=256, 2 images x 65536) and on
+    points at the radius from the edges of the warps' rectangles
+    (`_radius_edge_points`, which lie on rectangle edges at every tile
+    size), to 1e-5 of the output's scale with the coverage identical;
+    exactly `reps` launches in `reps` calls by the wrapper and at most
+    `reps` by the profiler.  With `timed`, -> {err, ms, plain_ms,
+    device_us, t_ops, t_bytes} of the view's points."""
     import torch
     from pixelsynth_tpu_torch.config import SplatConfig
     from pixelsynth_tpu_torch.ops import splat as K2
 
-    cfg = SplatConfig()
+    cfg = SplatConfig(tile_size=tile)
+    at = f"[K2 C={C}" + ("]" if tile == 16 else f" tile {tile}]")
     pts, vld = _view_points(W)
     B, N, _ = pts.shape
     fts = torch.randn((B, N, C), device=DEVICE,
@@ -837,14 +853,14 @@ def k2_wide_check(C, W=256, reps=10, timed=False):
         err, scale = float((ok - op).abs().max()), float(op.abs().max())
         same = bool(torch.equal(ck, cp))
         errs.append(err)
-        log(f"[K2 C={C}] {tag}: max|kernel-plain| {err:.3e} (tolerance 1e-5 x scale "
+        log(f"{at} {tag}: max|kernel-plain| {err:.3e} (tolerance 1e-5 x scale "
             f"{scale:.3f}), coverage identical {same} ({int(cp.sum())} of {cp.numel()} "
             "pixels covered)")
         if not (err <= 1e-5 * scale and same):
-            raise AssertionError(f"K2 at C={C} disagrees with its plain version ({tag})")
+            raise AssertionError(f"{at} disagrees with its plain version ({tag})")
     run = lambda: K2.blend_slots(pts, fts, slot_idx, slot_valid, W, cfg)  # noqa: E731
     kernels, dev_us, counted = device_kernels(run, reps=reps)
-    check_one_kernel_a_call(f"[K2 C={C}]", "splat_blend", kernels, counted, reps)
+    check_one_kernel_a_call(at, "splat_blend", kernels, counted, reps)
     if not timed:
         return None
     ms = time_ms(run)
@@ -863,7 +879,7 @@ def k2_wide_check(C, W=256, reps=10, timed=False):
     by = (B * nT * M + n_valid * 8 + (pts.numel() + fts.numel()) * 4
           + B * W * W * (4 * C + 1))
     t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, by / PEAK_BYTES * 1e3
-    log(f"[K2 C={C}] {ms:.4f} ms a call, device {dev_us:.1f} us, plain {pms:.3f} ms; "
+    log(f"{at} {ms:.4f} ms a call, device {dev_us:.1f} us, plain {pms:.3f} ms; "
         f"{n_valid} valid slots, {pairs / 1e6:.2f} M covered pixel x slot pairs, "
         f"{flops / 1e9:.3f} GFLOP ({t_ops * 1e3:.1f} us at 67 TFLOP/s), {by / 1e6:.1f} MB "
         f"({t_bytes * 1e3:.1f} us at 3.35 TB/s): bound {max(t_ops, t_bytes):.4f} ms; "
@@ -1335,8 +1351,9 @@ def _order_grids():
     the default view's own distance grid (Config(), seed 0, the input and
     camera of `_run_view`: 32x32), the relay checkpoint's on four held-out
     pairs (16x16), and seeded random grids with many equal distances at
-    B = 1 and B = 64, and at 48x48 (72 keys a lane: a rescan of three
-    loads a lane)."""
+    B = 1 and B = 64, and at 48x48, 40x48, 64x64 and 99x99 (the frontier's
+    2-4 and 10 words a lane), and 16x16 grids whose distances span more
+    values than the kernel's counting sort takes (its bitonic ranking)."""
     import numpy as np
     import torch
     from pixelsynth_tpu_torch.config import Config
@@ -1360,10 +1377,40 @@ def _order_grids():
     relay = _background_distances(ps, b["input_img"], b)
     rng = np.random.default_rng(3)
     grids = {"default view 1x32x32": view, "relay checkpoint 4x16x16": relay}
-    for B, side in ((1, 32), (64, 32), (2, 48)):
-        grids[f"random ties {B}x{side}x{side}"] = torch.as_tensor(
-            rng.integers(-3, 4, (B, side, side)).astype(np.int32), device=DEVICE)
+    for B, H, W in ((1, 32, 32), (64, 32, 32), (2, 48, 48), (1, 40, 48), (1, 64, 64),
+                    (1, 99, 99)):
+        grids[f"random ties {B}x{H}x{W}"] = torch.as_tensor(
+            rng.integers(-3, 4, (B, H, W)).astype(np.int32), device=DEVICE)
+    # a span of distances wider than the kernel's counting table: its
+    # bitonic ranking
+    grids["wide span 2x16x16"] = torch.as_tensor(
+        rng.integers(-3000, 3001, (2, 16, 16)).astype(np.int32), device=DEVICE)
     return {k: v.to(torch.int32).contiguous() for k, v in grids.items()}
+
+
+def _chain_floor(mode, steps):
+    """csrc/custom_order.cu's `order_chain_floor` probe: one warp, `steps`
+    dependent iterations of mode 0 (a shared load + a redux.sync) or mode
+    1 (a ballot + __ffs + a shuffle) -> (ms a launch by CUDA events,
+    clock64 cycles an iteration)."""
+    import ctypes
+
+    import torch
+    from pixelsynth_tpu_torch.ops import _cuda
+
+    lib = _cuda.load("custom_order")
+    fn = lib.order_chain_floor
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.zeros(2, dtype=torch.int32, device=DEVICE)
+
+    def run():
+        _cuda.check(fn(mode, steps, _cuda.ptr(out), _cuda.stream_of(out)), "order_chain_floor")
+
+    ms = time_ms(run)
+    run()
+    torch.cuda.synchronize()
+    return ms, int(out[1]) / steps
 
 
 def phase_orders(report):
@@ -1373,7 +1420,8 @@ def phase_orders(report):
     else heapq), bit for bit, one launch a call, on `_order_grids`; timed
     on the default view's grid (B = 1, what a view builds) and at B = 64,
     beside the plain version and the host path (copy to the host, heap,
-    copy back) as the yardstick."""
+    copy back) as the yardstick; and the chain's floor (`_chain_floor`)
+    beside the kernel's time a step."""
     import numpy as np
     import torch
     from pixelsynth_tpu_torch.ops import orders as O
@@ -1420,6 +1468,18 @@ def phase_orders(report):
             f"{hms:.3f} ms host heap ({O.HOST_ORDER_PATH}: copy, heap, copy back), "
             f"bound {max(t_bytes, t_ops) * 1e3:.3f} us ({'bytes' if t_bytes >= t_ops else 'operations'}); "
             f"step model (assumed 60 cycles x {HW - 1} steps at 1.98 GHz) {step_model:.4f} ms")
+    # the chain's floor, timed in this run: one warp looping HW - 1 times
+    # over one shared load + one redux.sync (the first design's links) and
+    # over one ballot + ffs + shuffle (this design's pop)
+    steps = 32 * 32 - 1
+    ms1 = rows["1x32x32"][0]
+    for mode, links in enumerate(("a shared load + __reduce_max_sync",
+                                  "__ballot_sync + __ffs + __shfl_sync")):
+        ms, cycles = _chain_floor(mode, steps)
+        log(f"[orders] chain floor, {links}: {cycles:.1f} cycles a step (clock64), "
+            f"{ms * 1e6 / steps:.1f} ns a step ({ms:.4f} ms a launch of {steps} steps); "
+            f"the order kernel at 1x32x32: {ms1 * 1e6 / steps:.1f} ns a step "
+            f"({ms1:.4f} ms a call, the ranking and the launch included) on {card_line()}")
     ms, pms, hms, t_bytes, t_ops = rows["1x32x32"]
     report["custom_order"] = _entry(
         "custom_order", "custom_order.cu",
@@ -2192,7 +2252,8 @@ def _max_err(a, b):
 
 def phase_angle(report, n_frames=8):
     """forward_angle and the encoder composition on the card.
-      * K2 at C = 9 and C = 64 against its plain version
+      * K2 at C = 9, 24, 64 and 72 (two blocks of channels), and at 64
+        and 72 with tiles of 8 and 32, against its plain version
         (`k2_wide_check`), one backward at C = 64 (`k2_wide_backward`);
       * `forward_angle` on the trained checkpoint (stitched.npz, W=128,
         RGB) over nerf_like_circle(n_frames): ms a view on the second call,
@@ -2221,7 +2282,11 @@ def phase_angle(report, n_frames=8):
     from pixelsynth_tpu_torch.utils.camera_paths import nerf_like_circle
 
     t_phase = time.perf_counter()
-    k2_wide_check(9)
+    for C in (9, 24, 72):
+        k2_wide_check(C)
+    for tile in (8, 32):
+        for C in (64, 72):
+            k2_wide_check(C, tile=tile)
     wide = k2_wide_check(64, timed=True)
     bwd_ms = k2_wide_backward(64)
     RTs = nerf_like_circle(n_frames)

@@ -499,9 +499,10 @@ class _SplatBlendFn(torch.autograd.Function):
 
 def blend_slots_kernel(points, feats, slot_idx, slot_valid, W: int, cfg: SplatConfig):
     """One launch of the CUDA kernel (csrc/splat_blend.cu), which gathers
-    the slots' points itself: points f32, any C >= 1 (the grid runs
-    ceil(C / 8) channel groups, each walking the tile's slots); slot_idx
-    int64; tile_size a multiple of 8 up to 32.  feats are cast once to
+    the slots' points itself: points f32, any C >= 1 (C <= 8 a thread a
+    pixel; C > 8 one walk of a tile's slots, the weights times the
+    features on the tensor cores); slot_idx int64; tile_size a multiple
+    of 8 up to 32.  feats are cast once to
     f32, or with blend_dtype "bfloat16" to bf16 for the bf16 entry
     (`splat_blend_bf16`, counted under that name).  Takes no gradient:
     under one, `blend_slots` runs it inside `_SplatBlendFn`."""

@@ -1,29 +1,33 @@
-"""Device time of the kernels (K1 up and down, K2, K3, K4, K5), on the card.
+"""Device time of the kernels (K1 up and down, K2, K3, K4, K5, the order
+kernel), on the card.
 
-  python3 -m pixelsynth_tpu_torch.tools.device_times [--only k2,k3]
-      [--k2-channels 3,64] [--k2-save OUT.npz] [--k2-compare REF.npz]
-      [--k3-variant]
+  python3 -m pixelsynth_tpu_torch.tools.device_times [--only k2,k3,orders]
+      [--k2-channels 3,64] [--k2-dtypes float32,bfloat16] [--k2-save OUT.npz]
+      [--k2-compare REF.npz] [--k3-variant]
 
 A call of these wrappers is one or a few launches, and the host's work for
 a call can exceed the kernels' time: CUDA events around back-to-back calls
 (chip_smoke.time_ms) then read the host.  This reads the kernels' own
 durations from torch.profiler, at chip_smoke.py's shapes (pop 16, 32x32,
 F=80, bf16, the masks of the half-empty grid; K2 at W=256, 2 images x
-131072 points; the binning keys of 131072 points, (1, 2^19)), beside the
-time of a call, and for K5 beside
-torch.sort(stable=True).  K2 is timed as the checkout has it: the blend
-from the binner's tables with the gather inside (`blend_slots`), or the
-slot gather followed by the blend over the gathered lists; the device time
-of either is the sum of its kernels, at each of `--k2-channels` feature
-widths (default 3; f32 features, K2's f32 entry).  K3's device time likewise includes
-the cast of x to bf16 where the checkout's wrapper launches one.
-`--k2-save` writes K2's image and coverage in every accumulation (image
-layout) to an npz, `--k2-compare` holds them bit for bit to such a file
-(written by another checkout); `--k3-variant` also times K3 built with the
-other cluster size.  It uses only the wrappers' public signatures, so a
-copy of this file runs unchanged in an older checkout of the repository
-(to compare two versions inside one run on one card).
-Needs a CUDA device and nvcc; prints the card's name and power limit.
+131072 points; the binning keys of 131072 points, (1, 2^19); the order
+kernel on seeded random 32x32 distance grids with ties, B = 1 and 64),
+beside the time of a call, and for K5 beside torch.sort(stable=True).  K2
+is timed as the checkout has it: the blend from the binner's tables with
+the gather inside (`blend_slots`), or the slot gather followed by the
+blend over the gathered lists; the device time of either is the sum of its
+kernels, at each of `--k2-channels` feature widths (default 3), with f32
+features through K2's f32 entry and, where `--k2-dtypes` names it, bf16
+features through its bf16 entry (`blend_dtype="bfloat16"`).  K3's device
+time likewise includes the cast of x to bf16 where the checkout's wrapper
+launches one.  `--k2-save` writes K2's image and coverage in every
+accumulation (image layout) to an npz, `--k2-compare` holds them bit for
+bit to such a file (written by another checkout); `--k3-variant` also
+times K3 built with the other cluster size.  It uses only the wrappers'
+public signatures, so a copy of this file runs unchanged in an older
+checkout of the repository (to compare two versions inside one run on one
+card).  Needs a CUDA device and nvcc; prints the card's name and power
+limit.
 """
 
 from __future__ import annotations
@@ -84,8 +88,9 @@ def k2_runs(K2, pts, fts, vld, W, cfg):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", default="k1,k2,k3,k4,k5")
+    ap.add_argument("--only", default="k1,k2,k3,k4,k5,orders")
     ap.add_argument("--k2-channels", default="3")
+    ap.add_argument("--k2-dtypes", default="float32")
     ap.add_argument("--k2-save")
     ap.add_argument("--k2-compare")
     ap.add_argument("--k3-variant", action="store_true")
@@ -135,12 +140,15 @@ def main(argv=None):
 
     if "k2" in only:
         got = {}
-        for C in map(int, args.k2_channels.split(",")):
+        for C, dt in ((C, dt) for dt in args.k2_dtypes.split(",")
+                      for C in map(int, args.k2_channels.split(","))):
             W2, pts, fts, vld = cs._k2_inputs(C=C, W=256, N=65536 * 2)
-            runs = k2_runs(K2, pts, fts, vld, W2, SplatConfig())
-            at = "" if C == 3 else f" at C={C}"
+            bf16 = dt == "bfloat16"
+            cfg = SplatConfig(blend_dtype=dt) if bf16 else SplatConfig()
+            runs = k2_runs(K2, pts, fts.to(torch.bfloat16) if bf16 else fts, vld, W2, cfg)
+            at = ("" if C == 3 else f" at C={C}") + (" bf16" if bf16 else "")
             report(f"K2 splat blend{at}, gather included", runs["alphacomposite"])
-            suffix = "" if C == 3 else f"_c{C}"
+            suffix = ("" if C == 3 else f"_c{C}") + ("_bf16" if bf16 else "")
             for acc, run in runs.items():
                 img, cov = run()
                 got[f"{acc}_image{suffix}"] = img.cpu().numpy()
@@ -197,6 +205,15 @@ def main(argv=None):
         report("K5 (1, 2^19)", lambda: K5.sort_kv_kernel(keys))
         report("torch.sort(stable=True) (1, 2^19)",
                lambda: torch.sort(keys, dim=1, stable=True))
+
+    if "orders" in only:
+        from pixelsynth_tpu_torch.ops import orders_device as D
+
+        rng = np.random.default_rng(3)
+        for B in (1, 64):
+            d = torch.as_tensor(rng.integers(-3, 4, (B, 32, 32)).astype(np.int32),
+                                device=cs.DEVICE)
+            report(f"order kernel {B}x32x32", lambda: D.custom_order_device(d))
     print(cs.card_line())
 
 

@@ -94,15 +94,18 @@ def test_k2_matches_plain_on_card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("C", [9, 16, 64])
-def test_k2_wide_features_match_plain_on_card(C):
-    """K2 at C > 8 channels (one launch of ceil(C / 8) channel groups) on a
-    view's own points and on points at the radius, against its plain
-    version to 1e-5 of the output's scale; one launch a call."""
+@pytest.mark.parametrize("C,tile", [(9, 16), (16, 16), (24, 16), (64, 16), (72, 16),
+                                    (64, 8), (72, 8), (64, 32), (72, 32)])
+def test_k2_wide_features_match_plain_on_card(C, tile):
+    """K2 at C > 8 channels (one walk a tile, the product on the tensor
+    cores; above 64 channels a block takes 64; tiles of 8 run two warps a
+    block, tiles of 32 split their rectangles over four blocks) on a view's
+    own points and on points at the radius, against its plain version to
+    1e-5 of the output's scale; one launch a call."""
     _need_card()
     import chip_smoke
 
-    chip_smoke.k2_wide_check(C)
+    chip_smoke.k2_wide_check(C, tile=tile)
 
 
 @pytest.mark.gpu

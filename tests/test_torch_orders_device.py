@@ -163,3 +163,110 @@ def test_weight_norm_is_not_read():
         logits.append(fn(codes, torch.zeros((2, 8, 8))))
     assert torch.isfinite(logits[0]).all()
     assert torch.equal(logits[0], logits[1])
+
+
+def _bitonic_desc(keys):
+    """csrc/custom_order.cu's sort: the bitonic network over n = 2^k keys,
+    pair q of a stage comparing i = 2q - (q & (j - 1)) with i + j,
+    descending where i & k is 0."""
+    keys = keys.copy()
+    n = keys.size
+    q = np.arange(n // 2)
+    k = 2
+    while k <= n:
+        j = k >> 1
+        while j > 0:
+            i = 2 * q - (q & (j - 1))
+            a, b = keys[i], keys[i + j]
+            swap = np.where((i & k) == 0, a < b, a > b)
+            keys[i[swap]], keys[i[swap] + j] = b[swap], a[swap]
+            j >>= 1
+        k <<= 1
+    return keys
+
+
+def _counting_ranks(dist):
+    """csrc/custom_order.cu's counting sort by d, descending: a histogram
+    of hi - d, its exclusive scan, then 32 pixels at a time in index order,
+    each taking its value's next rank after the lanes below it with the
+    same value (__match_any_sync) -> pixel_of_rank."""
+    flat = dist.reshape(-1).astype(np.int64)
+    v = flat.max() - flat
+    start = np.concatenate([[0], np.cumsum(np.bincount(v))[:-1]])
+    pix = np.empty(flat.size, np.int64)
+    for p0 in range(0, flat.size, 32):
+        vals = v[p0:p0 + 32]
+        for lane, val in enumerate(vals):
+            pix[start[val] + np.count_nonzero(vals[:lane] == val)] = p0 + lane
+        for val in np.unique(vals):
+            start[val] += np.count_nonzero(vals == val)
+    return pix
+
+
+def _rank_bitmask_order(dist):
+    """The order kernel's design on one (H, W) grid, step for step: rank
+    by the counting sort where the span of distances fits the table, else
+    by the bitonic sort, each rank's neighbours' ranks as one row, the
+    frontier and visited sets as rank-ordered 32-bit words with lane l
+    holding words l*K .. l*K + K - 1, the push by the owner lane, the pop
+    as ballot (the lowest lane with a non-empty word) -> that lane's lowest
+    set rank, the owner clearing its bit.  -> (H*W,) flat order."""
+    H, W = dist.shape
+    HW = H * W
+    n = 1 << max(0, (HW - 1).bit_length())
+    scores = dist.reshape(-1).astype(np.int64) * 10000 - np.arange(HW)
+    if int(dist.max()) - int(dist.min()) + 1 <= max(n, 2 * HW):   # the table's ints
+        pix = _counting_ranks(dist)
+    else:
+        keys = _bitonic_desc(np.concatenate([scores, np.full(n - HW, np.iinfo(np.int32).min)]))
+        assert np.all(np.diff(keys[:HW]) < 0) and np.all(keys[HW:] == np.iinfo(np.int32).min)
+        pix = (-keys[:HW]) % 10000
+    assert np.all(np.diff(scores[pix]) < 0)
+    rank = np.empty(HW, np.int64)
+    rank[pix] = np.arange(HW)
+    row, col = pix // W, pix % W
+    nbr = np.stack([np.where(row > 0, rank[np.maximum(pix - W, 0)], -1),
+                    np.where(row < H - 1, rank[np.minimum(pix + W, HW - 1)], -1),
+                    np.where(col > 0, rank[np.maximum(pix - 1, 0)], -1),
+                    np.where(col < W - 1, rank[np.minimum(pix + 1, HW - 1)], -1)], 1)
+    need = -(-(-(-HW // 32)) // 32)
+    K = next(k for k in (1, 2, 4, 10) if k >= need)
+    F = [[0] * K for _ in range(32)]
+    V = [[0] * K for _ in range(32)]
+    V[0][0] = 1
+    cur, order = 0, [int(pix[0])]
+    for _ in range(1, HW):
+        for q in nbr[cur]:
+            if q < 0:
+                continue
+            lane, i = divmod(int(q) >> 5, K)
+            bit = 1 << (int(q) & 31)
+            if not V[lane][i] & bit:
+                V[lane][i] |= bit
+                F[lane][i] |= bit
+        L = next(lane for lane in range(32) if any(F[lane]))   # ballot, __ffs
+        i = next(i for i in range(K) if F[L][i])
+        cur = ((L * K + i) << 5) | ((F[L][i] & -F[L][i]).bit_length() - 1)   # shuffle
+        F[L][i] &= F[L][i] - 1
+        order.append(int(pix[cur]))
+    return np.asarray(order)
+
+
+@pytest.mark.parametrize("B,H,W,span", [(2, 32, 32, 0), (2, 16, 16, 0), (1, 40, 48, 0),
+                                        (1, 64, 64, 0), (1, 1, 1, 0), (1, 3, 1, 0),
+                                        (2, 16, 16, 3000)])
+def test_rank_bitmask_design_matches_jax_and_the_heap(B, H, W, span):
+    """The redesigned order kernel's arithmetic (csrc/custom_order.cu),
+    emulated: bit-equal to custom_order_jax, the host heap and the plain
+    version on grids with ties, one word a lane (32x32, 16x16: lanes left
+    empty), two (40x48, non-square) and four (64x64), and 1-pixel-wide
+    grids, ranked by the counting sort; and, by the bitonic sort, grids
+    whose distances span more values than its table holds (3x1, and 16x16
+    with a span of 6001)."""
+    dist = _grids(B, H, W, seed=H * W)
+    if span:
+        dist = np.random.default_rng(span).integers(-span, span + 1, (B, H, W)).astype(np.int32)
+    got = np.stack([_rank_bitmask_order(d) for d in dist])
+    np.testing.assert_array_equal(got, np.asarray(custom_order_jax(jnp.asarray(dist))))
+    np.testing.assert_array_equal(got, O.custom_order_flat(dist))
+    np.testing.assert_array_equal(got, D.custom_order_plain(torch.as_tensor(dist)).numpy())
