@@ -12,7 +12,7 @@ from typing import List
 import torch
 import torch.nn.functional as F
 
-from pixelsynth_tpu_torch.models.layers import Conv, FlaxNamed
+from pixelsynth_tpu_torch.models.layers import Conv, FlaxNamed, avg_pool
 
 
 def _instance_norm(h: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -60,5 +60,5 @@ class MultiscaleDiscriminator(FlaxNamed):
         for i, d in enumerate(self.discs):
             outs.append(d(h))
             if i != len(self.discs) - 1:
-                h = F.avg_pool2d(h, 3, 2, 1, count_include_pad=False)
+                h = avg_pool(h, 3, 2, 1, count_include_pad=False)
         return outs

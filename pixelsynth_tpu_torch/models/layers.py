@@ -38,7 +38,9 @@ from pixelsynth_tpu_torch.parallel.mesh import active_mesh, draw_rows, sum_over_
 
 
 def _t(a, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(np.asarray(a, np.float32)).to(like.device)
+    """A Flax leaf as a CPU tensor in `like`'s dtype (a float64 module
+    loads float64 leaves without rounding them; `copy_` moves it)."""
+    return torch.tensor(np.asarray(a)).to(like.dtype)
 
 
 def _n(t: torch.Tensor) -> np.ndarray:
@@ -175,13 +177,13 @@ class Conv(FlaxNamed):
             self.bias.zero_()
 
     def load_flax(self, node):
-        k = torch.tensor(np.asarray(node["kernel"], np.float32))
+        k = _t(node["kernel"], self.weight)
         if self.sn_state:
             self.u.copy_(_t(node["u"], self.u))
             self.v.copy_(_t(node["v"], self.v))
         elif self.spectral:
             mat = k.reshape(-1, k.shape[-1])
-            v = torch.tensor(np.asarray(node["v"], np.float32))
+            v = _t(node["v"], k)
             k = k / torch.linalg.vector_norm(mat.T @ v)
         self.weight.copy_(k.permute(3, 2, 0, 1))
         if self.bias is not None:
@@ -221,7 +223,7 @@ class ConvTranspose(FlaxNamed):
         self.bias.zero_()
 
     def load_flax(self, node):
-        k = torch.tensor(np.asarray(node["kernel"], np.float32))
+        k = _t(node["kernel"], self.weight)
         self.weight.copy_(torch.flip(k, (0, 1)).permute(2, 3, 0, 1))
         self.bias.copy_(_t(node["bias"], self.bias))
 
@@ -445,12 +447,12 @@ class NoiseBN(FlaxNamed):
 
     def load_flax(self, node):
         for p, kind in ((self.wg, "gain"), (self.wb, "bias")):
-            w = torch.tensor(np.asarray(node[f"{kind}_kernel"], np.float32))
+            w = _t(node[f"{kind}_kernel"], p)
             if self.sn_state:
                 for name in (f"u_{kind}", f"v_{kind}"):
                     getattr(self, name).copy_(_t(node[name], getattr(self, name)))
             elif self.spectral:
-                v = torch.tensor(np.asarray(node[f"v_{kind}"], np.float32))
+                v = _t(node[f"v_{kind}"], w)
                 w = w / torch.linalg.vector_norm(w.T @ v)
             p.copy_(w)
         self.BatchNorm_0.load_flax(node["BatchNorm_0"])
@@ -474,9 +476,25 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
                          align_corners=False)
 
 
-def avg_pool(x: torch.Tensor, k: int, stride: int, padding: int = 0):
-    """Flax nn.avg_pool (padding counted in the divisor), NCHW."""
-    return F.avg_pool2d(x, k, stride, padding, count_include_pad=True)
+def avg_pool(x: torch.Tensor, k: int, stride: int, padding: int = 0, *,
+             count_include_pad: bool = True):
+    """Flax nn.avg_pool (padding counted in the divisor), NCHW; with
+    count_include_pad=False the padding is left out of it.
+
+    The pool reads a contiguous copy and its output takes the input's
+    memory format back.  The models take NHWC and permute it, so a tensor
+    here often has channels-last strides, and for those CUDA's avg_pool2d
+    computes the right forward but a wrong backward: its input gradient was
+    0.80-0.89 of its scale away from the CPU's in float64 on an H100 (torch
+    2.11, `scripts/dpr_bisect/op_grads.py`).  Through the discriminator's
+    downsample and the decoder's Down blocks, that gave the stage-2
+    generator a wrong gradient on the card."""
+    fmt = (torch.channels_last if not x.is_contiguous()
+           and x.is_contiguous(memory_format=torch.channels_last)
+           else torch.contiguous_format)
+    out = F.avg_pool2d(x.contiguous(), k, stride, padding,
+                       count_include_pad=count_include_pad)
+    return out.contiguous(memory_format=fmt)
 
 
 class ResNetBlock(FlaxNamed):

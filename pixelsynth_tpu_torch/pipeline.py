@@ -462,14 +462,14 @@ class PixelSynth:
         if gen is None:
             gen = torch.Generator(device=self.device).manual_seed(0)
         B = img.shape[0]
-        eye = torch.eye(4, device=img.device).expand(B, 4, 4)
+        eye = torch.eye(4, device=img.device, dtype=img.dtype).expand(B, 4, 4)
         depth = self.regress_depth(img)
         fs = self.features(img, gen=gen)
         start = gen.get_state()
         outs = []
         for RT in RTs:
-            RT = RT if torch.is_tensor(RT) else torch.as_tensor(np.asarray(RT, np.float32))
-            RT = RT.to(img.device, torch.float32).expand(B, 4, 4)
+            RT = RT if torch.is_tensor(RT) else torch.as_tensor(np.asarray(RT))
+            RT = RT.to(img.device, img.dtype).expand(B, 4, 4)
             cams = {"K": K, "Kinv": Kinv, "P_in": eye, "Pinv_in": eye, "P_out": RT}
             gen_fs, bg, _ = self.splat_view(fs, depth, cams)
             gen.set_state(start)
@@ -557,10 +557,12 @@ class PixelSynth:
         return self.pixelcnn(onehot, *triple, gen=gen)
 
     def batch_to_device(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        """numpy arrays -> float32 tensors on this device; tensors are moved
-        and keep their dtype."""
+        """numpy arrays -> tensors on this device in the decoder's dtype
+        (float32, or float64 for a model made `.double()`); tensors are
+        moved and keep their dtype."""
+        dtype = next(self.projector.parameters()).dtype
         return {k: (v.to(self.device) if torch.is_tensor(v) else
-                    torch.as_tensor(np.array(v, np.float32), device=self.device))
+                    torch.as_tensor(np.asarray(v), device=self.device).to(dtype))
                 for k, v in batch.items()}
 
     def train_forward(self, batch: Dict, *, gen: Optional[torch.Generator] = None,

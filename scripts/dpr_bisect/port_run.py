@@ -26,9 +26,7 @@ package.
   --float64        every tree but the PixelCNN (whose plain masked conv
                    computes in float32) and the batches in float64;
   --metrics-only   one line of the step's metrics a step, no evals;
-  --save           after the last step, torch.save the decoder's and D's
-                   state dicts and the U-Net's buffers to OUT/state.pt (the
-                   trees that move; a state to hold a step against JAX at).
+  --device, --threads  the device (cuda or cpu) and the CPU's threads.
 TF32 is off.  Each --log-every steps: psnr (with noise) and psnr_det
 (zero noise), in both conventions, as the tool writes them.
 
@@ -138,7 +136,6 @@ def main(argv=None):
     ap.add_argument("--metrics-only", action="store_true")
     ap.add_argument("--plain-k2", action="store_true")
     ap.add_argument("--float64", action="store_true")
-    ap.add_argument("--save", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=3200)
     ap.add_argument("--log-every", type=int, default=100)
@@ -223,10 +220,6 @@ def main(argv=None):
                 best = max(best, rec["psnr_det"])
                 f.write(json.dumps(rec) + "\n")
                 f.flush()
-    if a.save:
-        torch.save({"projector": ps.projector.state_dict(), "disc": ps.disc.state_dict(),
-                    "unet_buffers": dict(ps.unet.named_buffers()), "step": a.steps},
-                   os.path.join(a.out, "state.pt"))
     print(f"{a.out}: init={a.init} noise={a.noise} seed={a.seed} best det {best:.2f} "
           f"({a.steps} steps, {time.time() - t0:.0f}s)")
 

@@ -8,7 +8,14 @@
 #   ...                                       #   time
 #   bash scripts/dpr_bisect/runs.sh card6
 #   bash scripts/dpr_bisect/runs.sh cpu       # CPU: per-step metrics, both sides
+#   bash scripts/dpr_bisect/runs.sh cpu_long  # CPU: the port for 1600 steps
+#   bash scripts/dpr_bisect/runs.sh compare   # CPU: step by step from JAX's states
+#   bash scripts/dpr_bisect/runs.sh swap      # CPU: one tree on the port's update
+#   bash scripts/dpr_bisect/runs.sh card7     # on the card: card against CPU
+#   bash scripts/dpr_bisect/runs.sh card8     # on the card: the tool after the repair
 #
+# card1-6 ran before the average-pool repair (models/layers.py avg_pool);
+# card7 before and after it; card8 after it (evidence/torch/dpr*.jsonl).
 # The card's groups run their processes at once (one card, ~0.33-0.41 s a
 # step each for six on an H100 80GB HBM3 at 700 W); outputs go under
 # $OUT/card<n>/ (OUT defaults to build/dpr_bisect) and were copied to
@@ -22,6 +29,7 @@ I=$B/jax_init_s0.npz
 IN=$B/jax_init_s0_nopcnn.npz
 D=$B/jax_draws_s0.npy
 P="python3 scripts/dpr_bisect/port_run.py"
+S=scripts/dpr_bisect/step_compare.py
 OUT=${OUT:-$B}
 export OMP_NUM_THREADS=1
 
@@ -77,9 +85,8 @@ card4)  # float64 / float32 with K2's plain version
     together "$R --float64 --out $O/f64_plaink2" "$R --out $O/f32_plaink2" \
         "$R --float64 --log-every 50 --out $O/f64_plaink2_rep"
     ;;
-card5)  # a state to hold one step against JAX at (OUT/state.pt)
-    $P --init jax --jax-init $IN --noise bank --bank $D --steps 1500 --save \
-        --out $OUT/card5/state1500
+card5)  # JAX's init and draws, 1500 steps
+    $P --init jax --jax-init $IN --noise bank --bank $D --steps 1500 --out $OUT/card5/state1500
     ;;
 card6)  # the tool at six more seeds
     O=$OUT/card6; mkdir -p $O
@@ -89,10 +96,39 @@ card6)  # the tool at six more seeds
     done
     together "${cmds[@]}"
     ;;
+card8)     # the tool at seed 0 for 8000 steps and at seeds 1-3 for 3200 (evidence/torch/dpr*)
+    O=$OUT/card8; mkdir -p $O
+    cmds=("python3 -m pixelsynth_tpu_torch.tools.training_evidence --stage dpr --width 64 --steps 8000 --out $O/dpr_s0")
+    for k in 1 2 3; do
+        cmds+=("python3 -c \"from pixelsynth_tpu_torch.tools.training_evidence import evidence_dpr; evidence_dpr('$O/dpr_s$k', steps=3200, seed=$k)\"")
+    done
+    together "${cmds[@]}"
+    ;;
 cpu)    # per-step metrics of the first 120 steps, both packages, JAX's init and draws
     together \
         "JAX_PLATFORMS=cpu taskset -c 2-4 python scripts/dpr_bisect/jax_run.py --noise bank --bank $D --steps 120 --metrics-only --out $B/cpu_steps_jax" \
         "taskset -c 5-7 $P --init jax --jax-init $I --noise bank --bank $D --device cpu --threads 3 --steps 120 --metrics-only --out $B/cpu_steps_port"
+    ;;
+cpu_long)  # the port on the CPU for 1600 steps, JAX's init and draws (bisect/cpu_port_jaxinit_jaxdraws_1600)
+    taskset -c 0-3 $P --init jax --jax-init $I --noise bank --bank $D --device cpu --threads 4 \
+        --steps 1600 --metrics-only --out $B/cpu_port_long
+    ;;
+compare)   # one step of each package from each JAX state 0-111 (bisect/cpu_step_compare)
+    together \
+        "JAX_PLATFORMS=cpu taskset -c 0-6 python $S reference --steps 113 --init $I --draws $D --dir $B/states" \
+        "JAX_PLATFORMS=cpu taskset -c 5-7 python $S compare --steps 112 --init $I --draws $D --dir $B/states --consume --out $B/compare.jsonl"
+    ;;
+swap)      # 112 steps, one tree on the port's update (bisect/cpu_swap)
+    together \
+        "JAX_PLATFORMS=cpu taskset -c 0-6 python $S swap --tree none --init $I --draws $D --out $B/swap.jsonl" \
+        "JAX_PLATFORMS=cpu taskset -c 5-7 python $S swap --tree none --init $I --draws $D --out $B/swap.jsonl" \
+        "JAX_PLATFORMS=cpu taskset -c 0-6 python $S swap --tree projector --init $I --draws $D --out $B/swap.jsonl" \
+        "JAX_PLATFORMS=cpu taskset -c 0-6 python $S swap --tree disc --init $I --draws $D --out $B/swap.jsonl"
+    ;;
+card7)     # on the card: the step beside the CPU's in float64, and the operations' gradients (card_vs_cpu/)
+    O=$OUT/card7; mkdir -p $O
+    python3 scripts/dpr_bisect/card_vs_cpu.py --float64 --steps 6 --leaves 2 --init $IN --bank $D --out $O/cvc_f64.jsonl
+    python3 scripts/dpr_bisect/op_grads.py --init $IN --out $O/ops.json
     ;;
 *)
     sed -n '2,/^set -eu/p' "$0" | sed '$d'; exit 2

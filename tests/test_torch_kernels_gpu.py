@@ -223,3 +223,25 @@ def test_order_kernel_matches_plain_and_heap_on_card(B, side):
     assert D.LAUNCHES["custom_order"] == before + 1
     assert torch.equal(got, D.custom_order_plain(dist))
     assert np.array_equal(got.cpu().numpy(), O.custom_order_flat(dist.cpu().numpy()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("include", [True, False])
+def test_avg_pool_backward_on_card_matches_cpu(include):
+    """On the card, the port's `avg_pool` of an NHWC tensor seen through
+    permute (channels-last strides) has the CPU's input gradient (float64,
+    to 1e-12 of its scale; CUDA's `F.avg_pool2d` on such a tensor is
+    0.80-0.89 of it away, tests/test_torch_avg_pool.py)."""
+    _need_card()
+    from pixelsynth_tpu_torch.models.layers import avg_pool
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(16, 64, 64, 3, generator=g, dtype=torch.float64)
+    up = torch.randn(16, 3, 32, 32, generator=g, dtype=torch.float64)
+    grads = []
+    for dev in ("cuda", "cpu"):
+        xd = x.to(dev).requires_grad_(True)
+        y = avg_pool(xd.permute(0, 3, 1, 2), 3, 2, 1, count_include_pad=include)
+        grads.append(torch.autograd.grad(y, xd, up.to(dev))[0].cpu())
+    err = float((grads[0] - grads[1]).abs().max())
+    assert err <= 1e-12 * float(grads[1].abs().max()), err

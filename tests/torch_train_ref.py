@@ -79,14 +79,15 @@ def tiny_variables(jps, cfg, seed=0):
 
 def grads_in_port_layout(cfg, variables, grads, tree):
     """The JAX gradient tree of `tree` as the port's {parameter name:
-    array}: loaded as if it were the parameters through the bridge."""
+    array}: loaded as if it were the parameters through the bridge, into a
+    float64 module (so float64 leaves keep every bit)."""
     import torch
 
     from pixelsynth_tpu_torch.pipeline import build_modules, build_pixelcnn
     from pixelsynth_tpu_torch.weights import merge_collections
 
     m = (build_pixelcnn(cfg, trainable=True) if tree == "pixelcnn"
-         else build_modules(cfg, trainable=True)[tree])
+         else build_modules(cfg, trainable=True)[tree]).double()
     with torch.no_grad():
         m.load_flax(merge_collections({**variables[tree], "params": grads}))
     return {n: p.detach().numpy() for n, p in m.named_parameters()}
