@@ -74,8 +74,14 @@ prints the final ok line):
      a decoder on 64 + 1 channels: forward_angle, render_no_outpaint, one
      view through K5), and depth_warp_forward, both baselines and the
      two-level VQ-VAE at W=256 against the CPU;
-  8. the stage-2 trainer at the Config() widths (W=256, batch 12,
-     train_backend "pallas", a random-init VGG19): 6 G+D steps from the
+  8. each trainer the relay chain runs (stage 1, stage 2 G+D, stage 3,
+     the scene classifier; `phase_card_vs_cpu`, train/card_vs_cpu.py):
+     three float64 steps at small widths on the card beside the CPU from
+     one seeded state, each step from the CPU's carried state, every
+     gradient, parameter, Adam moment and buffer to 1e-9 of the leaf's
+     largest value; then the stage-2 trainer at the Config() widths
+     (W=256, batch 12, train_backend "pallas", a random-init VGG19): 6
+     G+D steps from the
      seeded initialiser, one K2 launch and 33 K3 launches a G step; one
      step's K2 and K3 work held to their plain versions
      (`plain_kernels`); and 300 steps of the evidence protocol (W=64,
@@ -1847,29 +1853,6 @@ def phase_walk(directions=("R", "L"), num_split=2):
         f"{outs['CloudValidCount'].tolist()}")
 
 
-# the floors of tests/test_relay_artifact.py, on the JAX report's numbers
-def relay_floors(got, jax_report, entropy, ln_classes):
-    """[(floor, holds)] of the relay gate."""
-    by_num = got["scene_gt_psnr_by_numerator"]
-    nums = sorted(int(k) for k in by_num)
-    return [
-        ("outpainted bg PSNR > no-outpaint bg PSNR (:120)",
-         got["paired_psnr_bg"] > got["baseline_no_outpaint_psnr_bg"]),
-        ("paired PSNR > report - 3 (:126)",
-         got["paired_psnr"] > jax_report["paired_psnr"] - 3.0),
-        ("consistency > report - 4 (:192)",
-         got["consistency_psnr_vis"] > jax_report["consistency_psnr_vis"] - 4.0),
-        ("consistency > 16 (:196)", got["consistency_psnr_vis"] > 16.0),
-        ("classifier entropy < 0.8 ln(classes) on fresh views (:154)",
-         entropy < 0.8 * ln_classes),
-        ("scene_gt_psnr >= 14 (:210)", got["scene_gt_psnr"] >= 14.0),
-        ("adjacent consistency >= 30 (:211)",
-         got["scene_adjacent_consistency_psnr"] >= 30.0),
-        ("numerator 1 >= last numerator - 1 (:214)",
-         by_num[str(nums[0])] >= by_num[str(nums[-1])] - 1.0),
-    ]
-
-
 def phase_relay(report, n_pairs=48, batch=8, consistency_items=16, num_samples=None):
     """The relay gate (eval/relay_report.py `build_report`) on the trained
     checkpoint at the report's own sizes: 48 held-out pairs in batches of
@@ -1879,12 +1862,9 @@ def phase_relay(report, n_pairs=48, batch=8, consistency_items=16, num_samples=N
     report's (evidence/relay/relay_report.json), held to the floors of
     tests/test_relay_artifact.py.  K1 and K2 must launch and no plain
     version run; the output goes under build/relay/."""
-    import numpy as np
     import torch
-    from pixelsynth_tpu_torch.data.panorama import synthesize_pano_shard
-    from pixelsynth_tpu_torch.eval.relay_report import build_report
-    from pixelsynth_tpu_torch.models.classifier import (
-        classifier_entropy, preprocess_for_classifier)
+    from pixelsynth_tpu_torch.eval.relay_report import (
+        build_report, fresh_view_entropy, relay_floors)
     from pixelsynth_tpu_torch.pipeline import PixelSynth
 
     ckpt = os.path.join(REPO, "evidence/relay/stitched.npz")
@@ -1914,19 +1894,14 @@ def phase_relay(report, n_pairs=48, batch=8, consistency_items=16, num_samples=N
         log(f"[relay] {k}: JAX report {json.dumps(jax_report.get(k))}")
     # tests/test_relay_artifact.py:138-154: a trained classifier is confident
     # on fresh panorama views
-    ps = PixelSynth.from_stitched(ckpt, device=DEVICE)
-    shard = synthesize_pano_shard(np.random.default_rng(4242), 2, ps.W, 35.0,
-                                  pairs_per_world=2)
-    img = torch.as_tensor(shard["images"][:, 0].astype(np.float32) / 255.0, device=DEVICE)
-    with torch.no_grad():
-        logits = ps.classifier(preprocess_for_classifier(img))
-    entropy = float(classifier_entropy(logits).mean())
-    ln_classes = float(np.log(logits.shape[-1]))
-    log(f"[relay] classifier entropy on fresh views {entropy:.4f} "
-        f"(ln {logits.shape[-1]} = {ln_classes:.4f})")
+    ent = fresh_view_entropy(PixelSynth.from_stitched(ckpt, device=DEVICE))
+    log(f"[relay] classifier entropy on fresh views {ent['entropy']:.4f} "
+        f"(ln(classes) = {ent['ln_classes']:.4f})")
     failed = []
-    for name, holds in relay_floors(got, jax_report, entropy, ln_classes):
-        log(f"[relay] floor {name}: {'holds' if holds else 'FAILS'}")
+    for name, value, holds in relay_floors(got, jax_report, ent["entropy"],
+                                           ent["ln_classes"]):
+        log(f"[relay] floor {name}: {value[0]!r} against {value[1]!r}: "
+            f"{'holds' if holds else 'FAILS'}")
         if not holds:
             failed.append(name)
     if got["n_pairs"] != n_pairs or got["n_consistency_items"] != consistency_items \
@@ -2448,6 +2423,65 @@ def phase_angle(report, n_frames=8):
         f"forward_angle {ckpt_ms:.2f} ms a view (stitched.npz, W=128), {enc_ms:.2f} ms a "
         f"view (encoder, W=256); render_no_outpaint {render_ms:.2f} ms a view; phase "
         f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_card_vs_cpu(steps=3):
+    """Each trainer the relay chain runs (stage 1, stage 2 G+D, stage 3, the
+    scene classifier) stepped `steps` times in float64 on the card beside
+    the CPU from one seeded state, on the same batches and NoiseBN rows
+    (train/card_vs_cpu.py `compare_trainer`, its plain K2 on both sides),
+    each step from the CPU's carried state: after every step each
+    gradient, parameter, Adam moment and step, and each buffer held to
+    1e-9 of the leaf's largest value (a parameter whose gradient is
+    float64 rounding alone to 1e-9 of its tree's largest; the record names
+    it).  The worst leaf of each tree is logged; then, logged and not
+    held, the same steps with each device carrying its own state (Adam's
+    division compounds the rounding).  The records go to
+    build/card_vs_cpu/<trainer>[_own].json."""
+    import torch
+    from pixelsynth_tpu_torch.train.card_vs_cpu import BOUND, TRAINERS, compare_trainer
+
+    out_dir = os.path.join(REPO, "build", "card_vs_cpu")
+    os.makedirs(out_dir, exist_ok=True)
+
+    def worst_of(got):
+        return max(((w[0], kind, tree, w[1], w[2]) for kind, trees in got["worst"].items()
+                    for tree, w in trees.items()), default=(0.0, "", "", "", 0))
+
+    failed = []
+    for name in TRAINERS:
+        t0 = time.perf_counter()
+        got = compare_trainer(name, (DEVICE, "cpu"), steps=steps)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        with open(os.path.join(out_dir, f"{name}.json"), "w") as f:
+            json.dump(got, f, indent=1)
+        w = worst_of(got)
+        log(f"[card_vs_cpu] {name}: {steps} float64 steps in {secs:.1f} s on "
+            f"{card_line()}; worst leaf {w[0]:.3e} ({w[1]} {w[2]}.{w[3]}, step {w[4]}), "
+            f"bound {BOUND:g}: {'holds' if got['ok'] else 'MISSES'}")
+        for tree in got["worst"]["grads"]:
+            log(f"[card_vs_cpu] {name} {tree}: " + ", ".join(
+                f"{kind} {trees[tree][0]:.2e} ({trees[tree][1]})"
+                for kind, trees in got["worst"].items() if tree in trees))
+        rounding = got["steps"][-1]["rounding"].get("grads")
+        if rounding:
+            log(f"[card_vs_cpu] {name} gradients held as rounding alone: "
+                f"{json.dumps(rounding)}")
+        log(f"[card_vs_cpu] {name} metrics' relative differences, last step: "
+            f"{json.dumps(got['steps'][-1]['metrics'])}")
+        if not got["ok"]:
+            failed.append(name)
+        own = compare_trainer(name, (DEVICE, "cpu"), steps=steps, resync=False)
+        with open(os.path.join(out_dir, f"{name}_own.json"), "w") as f:
+            json.dump(own, f, indent=1)
+        w = worst_of(own)
+        log(f"[card_vs_cpu] {name}, each device carrying its own state (not held): "
+            f"worst leaf by step " + ", ".join(
+                f"{max(x[0] for trees in r['worst'].values() for x in trees.values()):.2e}"
+                for r in own["steps"]) + f"; overall {w[1]} {w[2]}.{w[3]}")
+    if failed:
+        raise AssertionError(f"the card's float64 steps differ from the CPU's: {failed}")
 
 
 def _train_cfg(batch=None):
@@ -3657,6 +3691,7 @@ def main(argv):
         phase_relay(report)
         phase_eval(report)
         phase_angle(report)
+        phase_card_vs_cpu()
         B = phase_train(report)
         phase_train_kernels(B)
         phase_train_overfit()

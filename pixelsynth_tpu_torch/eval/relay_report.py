@@ -281,3 +281,52 @@ def build_report(ckpt: str, out_dir: str, *, device="cuda",
     with open(os.path.join(out_dir, "relay_report.json"), "w") as f:
         json.dump(report, f, indent=2)
     return report
+
+
+def fresh_view_entropy(ps) -> Dict:
+    """The stitched classifier's mean softmax entropy on fresh panorama
+    views (two new worlds, seed 4242; tests/test_relay_artifact.py:138-154)
+    -> {"entropy", "ln_classes"}: a trained classifier is confident there."""
+    from pixelsynth_tpu_torch.data.panorama import synthesize_pano_shard
+    from pixelsynth_tpu_torch.models.classifier import (
+        classifier_entropy, preprocess_for_classifier,
+    )
+
+    shard = synthesize_pano_shard(np.random.default_rng(4242), 2, ps.W, 35.0,
+                                  pairs_per_world=2)
+    img = torch.as_tensor(shard["images"][:, 0].astype(np.float32) / 255.0,
+                          device=ps.device)
+    with torch.no_grad():
+        logits = ps.classifier(preprocess_for_classifier(img))
+    return {"entropy": float(classifier_entropy(logits).mean()),
+            "ln_classes": float(np.log(logits.shape[-1]))}
+
+
+def relay_floors(got: Dict, jax_report: Dict, entropy: float, ln_classes: float
+                 ) -> List[tuple]:
+    """The relay gate's floors (tests/test_relay_artifact.py, by line) on a
+    report `got`, against the JAX package's report
+    (evidence/relay/relay_report.json) -> [(floor, value, holds)]; value is
+    what the floor reads, as [got, limit]."""
+    by_num = got["scene_gt_psnr_by_numerator"]
+    nums = sorted(int(k) for k in by_num)
+    first, last = by_num[str(nums[0])], by_num[str(nums[-1])]
+    rows = [
+        ("outpainted bg PSNR > no-outpaint bg PSNR (:120)",
+         got["paired_psnr_bg"], got["baseline_no_outpaint_psnr_bg"], ">"),
+        ("paired PSNR > report - 3 (:126)",
+         got["paired_psnr"], jax_report["paired_psnr"] - 3.0, ">"),
+        ("consistency > report - 4 (:192)",
+         got["consistency_psnr_vis"], jax_report["consistency_psnr_vis"] - 4.0, ">"),
+        ("consistency > 16 (:196)", got["consistency_psnr_vis"], 16.0, ">"),
+        ("classifier entropy < 0.8 ln(classes) on fresh views (:154)",
+         entropy, 0.8 * ln_classes, "<"),
+        ("scene_gt_psnr >= 14 (:210)", got["scene_gt_psnr"], 14.0, ">="),
+        ("adjacent consistency >= 30 (:211)",
+         got["scene_adjacent_consistency_psnr"], 30.0, ">="),
+        ("numerator 1 >= last numerator - 1 (:214)", first, last - 1.0, ">="),
+    ]
+    test = {">": lambda a, b: a > b, "<": lambda a, b: a < b,
+            ">=": lambda a, b: a >= b}
+    return [(name, [value, limit], bool(test[op](value, limit)))
+            for name, value, limit, op in rows]

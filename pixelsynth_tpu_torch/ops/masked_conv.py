@@ -63,23 +63,25 @@ def locally_masked_conv2d(x: torch.Tensor, mask: torch.Tensor,
     location, taps row-major; weight (k*k, Cin, Cout); bias (Cout);
     mask_weight (k*k, Cout), a learned term on the mask itself.  With
     compute_dtype the operands are rounded to it and the sum is taken in
-    f32.  Returns (B, H, W, Cout) f32."""
+    f32.  Returns (B, H, W, Cout) f32, or f64 where x or the weight is f64
+    (a float64 model computes in float64 throughout)."""
     B, H, W, _ = x.shape
     K2 = weight.shape[0]
     k = int(round(K2 ** 0.5))
+    acc = torch.promote_types(torch.promote_types(x.dtype, weight.dtype), torch.float32)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
         weight = weight.to(compute_dtype)
     m = mask_rows(mask, B, H, W).to(x.dtype)
     patches = torch.stack(shifted_taps(x, k, dilation), dim=3)  # (B,H,W,k2,Cin)
-    masked = (patches * m[..., None]).float()
-    out = torch.einsum("bhwpc,pco->bhwo", masked, weight.float())
+    masked = (patches * m[..., None]).to(acc)
+    out = torch.einsum("bhwpc,pco->bhwo", masked, weight.to(acc))
     if mask_weight is not None:
-        out = out + torch.einsum("bhwp,po->bhwo", m.float(),
-                                 mask_weight.to(m.dtype).float())
+        out = out + torch.einsum("bhwp,po->bhwo", m.to(acc),
+                                 mask_weight.to(m.dtype).to(acc))
     if bias is not None:
         out = out + bias
-    return out.float()
+    return out.to(acc)
 
 
 def locally_masked_conv2d_fused(x: torch.Tensor, mask: torch.Tensor,

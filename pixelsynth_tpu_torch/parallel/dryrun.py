@@ -6,13 +6,12 @@ runs the named jobs with the global batch sharded over them;
 `reference(jobs)` runs the same jobs in one process without a group.  The
 jobs, at `small_config()` (W=32, 4x4 codes):
   * "dpr": one stage-2 G+D step (AR head included, NoiseBN noise on) on a
-    global batch of 4, float64 but for the PixelCNN (whose plain masked
-    conv computes in float32 whatever its input) and the splat;
+    global batch of 4, float64 but for the PixelCNN (float32) and the
+    splat;
   * "vqvae": the data-dependent codebook init and one stage-1 step (EMA
     codebooks) on a global batch of 4, float64;
   * "lmconv": one stage-3 step with dropout 0.5 and a parameter EMA on a
-    global batch of 4, float32 (the plain masked conv computes in float32
-    whatever its input);
+    global batch of 4, float32;
   * "population": a two-view walk of `SceneGenerator` with 4 candidates a
     view, the population sharded over the ranks.
 Each trainer job returns its losses, the gradients its optimizers were

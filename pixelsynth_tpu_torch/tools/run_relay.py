@@ -19,13 +19,13 @@ panorama worlds of data/panorama.py, at the relay model's widths:
   stitch     one checkpoint, npz + run_dpr layout (tools/stitch_checkpoint.py)
   report     eval/relay_report.build_report on the stitched npz
 
-Each stage writes `<workdir>/<stage>.done.json`; a finished stage is
-skipped on the next call.  --force-from STAGE purges that stage's state
-and every later one's (STAGE_STATE) and runs them again; --only runs a
-subset.  The defaults write under build/relay_chain/, which .gitignore
-lists, and an evidence directory inside the repository's evidence/ is
-refused: evidence/relay/stitched.npz is the JAX package's artifact, which
-the relay gate reads.
+Each stage writes `<workdir>/<stage>.done.json` (its summary, seconds and
+profile); a finished stage is skipped on the next call.  --force-from
+STAGE purges that stage's state and every later one's (STAGE_STATE) and
+runs them again; --only runs a subset.  The defaults write under
+build/relay_chain/, which .gitignore lists, and an evidence directory
+inside the repository's evidence/ is refused: evidence/relay/stitched.npz
+is the JAX package's artifact, which the relay gate reads.
 
 Usage (on the card):
   python -m pixelsynth_tpu_torch.tools.run_relay --smoke --workdir build/relay_chain
@@ -491,6 +491,7 @@ def run_relay(workdir: str = DEFAULT_WORKDIR, evidence_dir: Optional[str] = None
         if device != "cpu" and torch.cuda.is_available():
             torch.cuda.synchronize()
         summary["seconds"] = time.time() - t0
+        summary["profile"] = "smoke" if smoke else profile
         _mark_done(workdir, stage, summary)
         results[stage] = summary
         _log(f"[relay] {stage}: done in {summary['seconds']:.1f}s -> "

@@ -4,6 +4,8 @@ gather, also held to torch's F.grid_sample), `ViewAppearanceFlow` and
 `Tatarchenko` at W=256 (their decoder always emits 256x256), batch 1, in
 eval; and `depth_warp_forward`, on a U-Net and on depth ties."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -67,9 +69,10 @@ def test_baseline_matches_flax(name):
     shapes = jax.eval_shape(lambda: jm.init({"params": k}, jnp.asarray(img),
                                             jnp.asarray(RTinv), jnp.asarray(RT), train=False))
     variables = _fill(shapes, rng)
-    want, inter = jm.apply(
-        variables, jnp.asarray(img), jnp.asarray(RTinv), jnp.asarray(RT), train=False,
-        capture_intermediates=lambda mdl, _: isinstance(mdl, jbase._ConvDecoder))
+    want, inter = jax.jit(functools.partial(
+        jm.apply, train=False,
+        capture_intermediates=lambda mdl, _: isinstance(mdl, jbase._ConvDecoder)))(
+        variables, jnp.asarray(img), jnp.asarray(RTinv), jnp.asarray(RT))
     want_dec = np.asarray(inter["intermediates"]["_ConvDecoder_0"]["__call__"][0])
     m = getattr(baselines, name)().eval()
     m.load_state_dict(from_jax_module(getattr(baselines, name)(), variables))

@@ -7,6 +7,7 @@ weights without Flax's init of the InceptionV3.  Images are made from a
 numpy seed; on the JAX side the networks run as its own tests run them on
 the CPU."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -111,7 +112,7 @@ def test_inception_features_match_jax(tmp_path):
     path = write_torchvision_npz(tinc.InceptionV3Features(), str(tmp_path / "inc.npz"), 11)
     variables = jinc.load_torch_inception(path)
     x = np.random.default_rng(12).uniform(-1, 1, (2, 75, 75, 3)).astype(np.float32)
-    want = np.asarray(jinc.InceptionV3Features().apply(variables, jnp.asarray(x)))
+    want = np.asarray(jax.jit(jinc.InceptionV3Features().apply)(variables, jnp.asarray(x)))
     sd = tinc.load_torch_inception(path)
     net = tmet.build_net(tinc.InceptionV3Features(), sd, "cpu", None)
     with torch.no_grad():

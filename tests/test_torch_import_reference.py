@@ -14,6 +14,8 @@ on the JAX-converted variables, at the tolerances of the existing module
 tests (tests/test_torch_models.py, test_torch_lmconv_module.py,
 test_torch_vqvae2.py, test_torch_encoder.py)."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -127,20 +129,23 @@ def test_converted_view_networks_match_jax(trees):
     rng = np.random.default_rng(1)
     img = rng.uniform(-1, 1, (2, W, W, 3)).astype(np.float32)
     mask = rng.random((2, W, W)) < 0.4
-    want, _ = jps.regress_depth(jv["unet"], jnp.asarray(img))
+    # the Flax oracles jitted: one compile costs less than their operations
+    # one by one
+    want, _ = jax.jit(jps.regress_depth)(jv["unet"], jnp.asarray(img))
     np.testing.assert_allclose(ps.regress_depth(torch.as_tensor(img)).numpy(),
                                np.asarray(want), atol=1e-5, rtol=1e-5)
-    want_codes, _ = jps.vq_encode(jv["vqvae"], jnp.asarray(img))
+    want_codes, _ = jax.jit(jps.vq_encode)(jv["vqvae"], jnp.asarray(img))
     codes = ps.vq_encode(torch.as_tensor(img))
     np.testing.assert_array_equal(codes.numpy(), np.asarray(want_codes))
     np.testing.assert_allclose(ps.vq_decode(codes).numpy(),
-                               np.asarray(jps.vq_decode(jv["vqvae"], want_codes)),
+                               np.asarray(jax.jit(jps.vq_decode)(jv["vqvae"], want_codes)),
                                atol=1e-5, rtol=1e-4)
-    want, _ = jps.decode_image(jv["projector"], jnp.asarray(img), jnp.asarray(mask),
-                               noise_scale=0.0)
+    want, _ = jax.jit(functools.partial(jps.decode_image, noise_scale=0.0))(
+        jv["projector"], jnp.asarray(img), jnp.asarray(mask))
     got = ps.decode_image(torch.as_tensor(img), torch.as_tensor(mask), noise_scale=0.0)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-4)
-    want = jps.disc.apply(jv["disc"], jnp.asarray(img), train=False)
+    want = jax.jit(functools.partial(jps.disc.apply, train=False))(jv["disc"],
+                                                                    jnp.asarray(img))
     got = ps.disc(torch.as_tensor(img))
     for ws, gs in zip(want, got):
         for w, g in zip(ws, gs):
@@ -194,7 +199,8 @@ def test_resnet_encoder_equals_jax(trainable):
     enc = module()
     enc.load_state_dict(got)
     x = np.random.default_rng(3).uniform(-1, 1, (2, W, W, 3)).astype(np.float32)
-    want = jps.encoder.apply(jvars, jnp.asarray(x), train=False, noise_scale=0.0)
+    want = jax.jit(functools.partial(jps.encoder.apply, train=False, noise_scale=0.0))(
+        jvars, jnp.asarray(x))
     with torch.no_grad():
         out = enc.eval()(torch.as_tensor(x), noise_scale=0.0)
     want = np.asarray(want)
@@ -216,7 +222,7 @@ def test_two_level_vqvae_equals_jax():
     assert_equal_state_dicts(got, want)
     m = VQVAE(**args).eval()
     m.load_state_dict(got)
-    want_dec, _ = jm.apply(jvars, jnp.asarray(img), train=False)
+    want_dec, _ = jax.jit(functools.partial(jm.apply, train=False))(jvars, jnp.asarray(img))
     with torch.no_grad():
         dec = m(torch.as_tensor(img))[0]
     np.testing.assert_allclose(dec.numpy(), np.asarray(want_dec), atol=1e-4, rtol=1e-4)
@@ -252,7 +258,8 @@ def test_lmconv_equals_jax(conv_mask_weight):
     got = imp.convert_lmconv(ref, port, nr_resnet=2)
     assert_equal_state_dicts(got, want)
     port.load_state_dict(got)
-    want = jm.apply(jvars, jnp.asarray(oh), m[:, 0], m[:, 1], m[:, 2], train=False)
+    want = jax.jit(functools.partial(jm.apply, train=False))(
+        jvars, jnp.asarray(oh), m[:, 0], m[:, 1], m[:, 2])
     mt = torch.as_tensor(masks)
     with torch.no_grad():
         out = port.eval()(torch.as_tensor(oh), mt[:, 0], mt[:, 1], mt[:, 2])

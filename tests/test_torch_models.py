@@ -1,7 +1,9 @@
 """The view step's networks through the weight bridge: the port's modules
 against the Flax modules on one tiny config, and the stitched checkpoint's
-load."""
+load.  Each Flax oracle runs jitted: one compile of the network takes a
+fraction of the time its operations take one by one."""
 
+import functools
 import os
 
 import jax
@@ -119,25 +121,25 @@ def nets():
 
 def test_unet_depth(nets):
     jps, _, v, ps, img, _ = nets
-    want, _ = jps.regress_depth(v["unet"], jnp.asarray(img))
+    want, _ = jax.jit(jps.regress_depth)(v["unet"], jnp.asarray(img))
     got = ps.regress_depth(torch.as_tensor(img))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
 
 
 def test_vqvae_codes_and_decode(nets):
     jps, _, v, ps, img, _ = nets
-    want_codes, _ = jps.vq_encode(v["vqvae"], jnp.asarray(img))
+    want_codes, _ = jax.jit(jps.vq_encode)(v["vqvae"], jnp.asarray(img))
     codes = ps.vq_encode(torch.as_tensor(img))
     np.testing.assert_array_equal(codes.numpy(), np.asarray(want_codes))
-    want = jps.vq_decode(v["vqvae"], want_codes)
+    want = jax.jit(jps.vq_decode)(v["vqvae"], want_codes)
     got = ps.vq_decode(codes)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-4)
 
 
 def test_refinement_decoder_zero_noise(nets):
     jps, _, v, ps, img, mask = nets
-    want, _ = jps.decode_image(v["projector"], jnp.asarray(img), jnp.asarray(mask),
-                               noise_scale=0.0)
+    want, _ = jax.jit(functools.partial(jps.decode_image, noise_scale=0.0))(
+        v["projector"], jnp.asarray(img), jnp.asarray(mask))
     got = ps.decode_image(torch.as_tensor(img), torch.as_tensor(mask),
                           noise_scale=0.0)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-4)
@@ -145,7 +147,8 @@ def test_refinement_decoder_zero_noise(nets):
 
 def test_discriminator(nets):
     jps, _, v, ps, img, _ = nets
-    want = jps.disc.apply(v["disc"], jnp.asarray(img), train=False)
+    want = jax.jit(functools.partial(jps.disc.apply, train=False))(v["disc"],
+                                                                    jnp.asarray(img))
     got = ps.disc(torch.as_tensor(img))
     for ws, gs in zip(want, got):
         for w, g in zip(ws, gs):
@@ -158,7 +161,7 @@ def test_classifier(nets):
     want_in = np.array(jax_preprocess(jnp.asarray(x01)))
     got_in = preprocess_for_classifier(torch.as_tensor(x01))
     np.testing.assert_allclose(got_in.numpy(), want_in, atol=1e-5, rtol=1e-5)
-    want = cls.apply(v["classifier"], jnp.asarray(want_in))
+    want = jax.jit(cls.apply)(v["classifier"], jnp.asarray(want_in))
     got = ps.classifier(torch.as_tensor(want_in))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-4)
 

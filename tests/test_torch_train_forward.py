@@ -1,6 +1,6 @@
 """The stage-2 training forward of the port (`PixelSynth.train_forward`)
 against `jax.value_and_grad` of the JAX package's, on the tiny config of
-tests/test_train_loops.py (W=64, ngf/ndf 8, nr_filters 16, VQ channel 16,
+tests/test_train_loops.py at W=32 (ngf/ndf 8, nr_filters 16, VQ channel 16,
 batch 2) at noise_scale 0 with train_backend "xla": every loss key, every
 gradient leaf of the trainable trees (unet, projector, pixelcnn) and every
 collection update (the U-Net's and the decoder's batch statistics and
@@ -44,7 +44,7 @@ def _port(cfg, variables, float64=False):
 
 @pytest.fixture(scope="module")
 def setup():
-    jcfg = tiny_cfg()
+    jcfg = tiny_cfg(32)
     cfg = Config.from_json(jcfg.to_json())
     jps = JaxPixelSynth(jcfg)
     variables = tiny_variables(jps, cfg)
@@ -89,7 +89,8 @@ def test_train_forward_losses_match_jax_float32(setup):
     assert set(losses) == set(want)
     for k, v in want.items():
         np.testing.assert_allclose(float(losses[k]), v, rtol=1e-5, err_msg=k)
-    assert outputs["PredImg"].shape == (2, 64, 64, 3)
+    W = setup["cfg"].model.W
+    assert outputs["PredImg"].shape == (2, W, W, 3)
     assert bool(torch.isfinite(outputs["PredImg"]).all())
 
 
@@ -137,10 +138,11 @@ def test_train_forward_gt_depth_branch(setup):
     ps = _port(cfg, setup["variables"])
     before = {k: v.clone() for k, v in flat(collections(ps.unet)).items()}
     b = ps.batch_to_device(setup["batch"])
-    b["depth_img"] = torch.full((2, 64, 64), 3.0)
+    W = cfg.model.W
+    b["depth_img"] = torch.full((2, W, W), 3.0)
     total, losses, outputs, updates = ps.train_forward(b, noise_scale=0.0, train_ar=False)
     assert updates["unet"] is None and float(losses["depth_loss"]) == 0.0
     assert "autoreg_loss" not in losses
     for k, v in flat(collections(ps.unet)).items():
         assert torch.equal(v, before[k]), k
-    torch.testing.assert_close(outputs["PredDepthImg"], torch.full((2, 64, 64), 3.0 / 5 - 1))
+    torch.testing.assert_close(outputs["PredDepthImg"], torch.full((2, W, W), 3.0 / 5 - 1))

@@ -2,9 +2,9 @@
 the JAX step with the NoiseBN noise ON: the same (B, 20) draws injected
 into both packages, each step from the state each side carried out of
 the step before.  The configuration and the JAX step are those of
-tests/test_torch_train_step.py (the tiny config, one initial state through
-`weights.from_jax_params(..., trainable=True)`, both sides in float64, the
-PixelCNN's plain masked conv in float32).
+tests/test_torch_train_step.py (the tiny config at W=32, one initial
+state through `weights.from_jax_params(..., trainable=True)`, both sides
+in float64, the PixelCNN's plain masked conv in float32).
 
 The noise goes in where each package draws it: the JAX layers' one
 `jax.random.normal` call (NoiseBN, models/layers.py:216) takes the next
@@ -130,7 +130,7 @@ def _jax_step(jps, tx_g, tx_d):
 
 @pytest.fixture(scope="module")
 def runs():
-    jcfg = tiny_cfg()
+    jcfg = tiny_cfg(32)
     cfg = Config.from_json(jcfg.to_json())
     jps = JaxPixelSynth(jcfg)
     variables = tiny_variables(jps, cfg, seed=1)

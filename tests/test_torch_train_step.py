@@ -1,10 +1,11 @@
 """The port's G+D step (train/dpr.py) against a JAX step assembled from the
 JAX package's public pieces in the order of its `make_dpr_train_step`
-(dpr.py:122-185), on the tiny config of tests/test_train_loops.py: the G
-loss with D scored in eval, Adam on G with G's batch / spectral statistics
-merged, the D hinge loss on the detached prediction, Adam on D, then one
-train forward of D on fake || real that only advances D's spectral
-vectors.  Both sides in float64 end to end.
+(dpr.py:122-185), on the tiny config of tests/test_train_loops.py at W=32
+(XLA:CPU's float64 convolutions are slow; the values given as measured
+below were taken at W=64): the G loss with D scored in eval, Adam on G
+with G's batch / spectral statistics merged, the D hinge loss on the
+detached prediction, Adam on D, then one train forward of D on fake ||
+real that only advances D's spectral vectors.  Both sides in float64 end to end.
 
 Both packages take STEPS consecutive steps from one initial state, each
 from the state it carried out of the step before, with the NoiseBN noise
@@ -17,10 +18,10 @@ after it); after every step, the parameters, Adam's moments and count,
 G's batch statistics and spectral vectors, and D's spectral vectors.
 The bound is 1e-9 of each leaf's largest value for the U-Net, the decoder
 and D.  Where it is looser, the test names the leaves and says why:
-  * the PixelCNN's plain masked conv computes in float32 whatever its
-    input (ops/masked_conv.py), so its gradients sit ~1e-6 of their scale
-    from JAX's float64 ones (measured 1.0e-6), and Adam's division turns
-    that into up to ~lr on small-gradient elements;
+  * the PixelCNN stays float32 (its plain masked conv computes in the
+    dtype of its operands, ops/masked_conv.py), so its gradients sit
+    ~1e-6 of their scale from JAX's float64 ones (measured 1.0e-6), and
+    Adam's division turns that into up to ~lr on small-gradient elements;
   * leaves whose gradient is zero in exact arithmetic carry float64
     rounding alone: every U-Net leaf (<= 1.5e-15 in both packages; the
     depth reaches the loss only through the splat's point positions) and
@@ -226,7 +227,7 @@ def _carried(ps, state):
 
 @pytest.fixture(scope="module")
 def setup():
-    jcfg = tiny_cfg()
+    jcfg = tiny_cfg(32)
     cfg = Config.from_json(jcfg.to_json())
     jcfg.model.splat.blend_dtype = "float64"
     jps = JaxPixelSynth(jcfg)

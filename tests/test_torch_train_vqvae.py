@@ -6,6 +6,7 @@ gradients, parameters and EMA collection, the data-dependent codebook
 init given JAX's draws, and the serving encode.  Both sides in float64
 (tests/torch_train_ref.py) unless a test says otherwise."""
 
+import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -58,8 +59,8 @@ def _close(got, want, rtol=1e-9):
 @pytest.fixture(scope="module")
 def jax_model():
     model = JaxVQVAETop(**DIMS)
-    variables = model.init({"params": jax.random.PRNGKey(0)},
-                           jnp.zeros((1, W, W, 3)), train=False)
+    variables = jax.jit(functools.partial(model.init, train=False))(
+        {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, W, W, 3)))
     return model, jax.tree_util.tree_map(np.asarray, variables)
 
 
@@ -100,9 +101,11 @@ def test_forward_and_encode_match_jax(jax_model):
     img = _img(1)
     with jax.enable_x64(True):
         v64 = to64(variables)
-        recon, diff = model.apply(v64, jnp.asarray(img), train=False)
-        _, _, _, id_t, id_b = model.apply(v64, jnp.asarray(img), train=False,
-                                          method=model.encode)
+        # jitted: one compile costs less than the operations one by one
+        recon, diff = jax.jit(functools.partial(model.apply, train=False))(
+            v64, jnp.asarray(img))
+        _, _, _, id_t, id_b = jax.jit(functools.partial(
+            model.apply, train=False, method=model.encode))(v64, jnp.asarray(img))
     port = _port(variables).eval()
     with torch.no_grad():
         got_recon, got_diff = port(torch.tensor(img))
@@ -211,7 +214,8 @@ def test_init_codebook_from_batch_matches_jax(jax_model):
     with jax.enable_x64(True):
         v64 = to64(variables)
         want = jax_vq.init_codebook_from_batch(model, v64, jnp.asarray(img), key)["ema"]
-        qt, _ = model.apply(v64, jnp.asarray(img), method=model.pre_quantize)
+        qt, _ = jax.jit(functools.partial(model.apply, method=model.pre_quantize))(
+            v64, jnp.asarray(img))
         k_t, k_b = jax.random.split(jax.random.fold_in(key, 7))
         draws = {}
         for name, sub, n_lat in (("quantize_t", k_t, qt.shape[0] * qt.shape[1] * qt.shape[2]),
@@ -243,9 +247,11 @@ def test_serving_encode_and_bridge_carry_the_ema(jax_model):
     `from_jax_params` carrying the whole `ema` collection."""
     model, variables = jax_model
     img = _img(5).astype(np.float32)
-    ids = np.asarray(model.apply(variables, jnp.asarray(img), train=False,
-                                 method=model.encode)[3])
-    dec = np.asarray(model.apply(variables, jnp.asarray(ids), method=model.decode_code))
+    ids = np.asarray(jax.jit(functools.partial(model.apply, train=False,
+                                               method=model.encode))(
+        variables, jnp.asarray(img))[3])
+    dec = np.asarray(jax.jit(functools.partial(model.apply, method=model.decode_code))(
+        variables, jnp.asarray(ids)))
     port = _port(variables, torch.float32).train()
     before = {k: v.clone() for k, v in port.state_dict().items()}
     with torch.no_grad():

@@ -7,9 +7,8 @@ perceptual gradient's scale, through the refinement decoder's train-mode
 BatchNorms ~3e-3 of its gradients, where the port's float32 stays within
 ~1e-6 of float64 (measured on the configs of these tests).  So gradients
 and collection updates are compared with both sides in float64: JAX under
-`jax.enable_x64`, the port's modules `.double()`.  The port's plain masked
-conv computes in float32 whatever its input, so the PixelCNN stays float32
-there."""
+`jax.enable_x64`, the port's modules `.double()`, but for the PixelCNN,
+which stays float32 there and is held to float32 bounds."""
 
 import contextlib
 from unittest import mock
