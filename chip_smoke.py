@@ -1853,7 +1853,8 @@ def phase_walk(directions=("R", "L"), num_split=2):
         f"{outs['CloudValidCount'].tolist()}")
 
 
-def phase_relay(report, n_pairs=48, batch=8, consistency_items=16, num_samples=None):
+def phase_relay(report, n_pairs=48, batch=8, consistency_items=16, num_samples=None,
+                spread_seeds=range(4)):
     """The relay gate (eval/relay_report.py `build_report`) on the trained
     checkpoint at the report's own sizes: 48 held-out pairs in batches of
     8, the checkpoint's 8 samples, T = 0.5 for the paired and consistency
@@ -1861,7 +1862,10 @@ def phase_relay(report, n_pairs=48, batch=8, consistency_items=16, num_samples=N
     world at the checkpoint's walk settings; its numbers beside the JAX
     report's (evidence/relay/relay_report.json), held to the floors of
     tests/test_relay_artifact.py.  K1 and K2 must launch and no plain
-    version run; the output goes under build/relay/."""
+    version run; the output goes under build/relay/.  Then, logged and not
+    held, the same walk at `spread_seeds` (tools/relay_walk_spread.py):
+    each seed's gt PSNR and adjacency, and their means, beside the JAX
+    package's 8-seed CPU means (evidence/torch/walk_parity/)."""
     import torch
     from pixelsynth_tpu_torch.eval.relay_report import (
         build_report, fresh_view_entropy, relay_floors)
@@ -1904,6 +1908,22 @@ def phase_relay(report, n_pairs=48, batch=8, consistency_items=16, num_samples=N
             f"{'holds' if holds else 'FAILS'}")
         if not holds:
             failed.append(name)
+    # the walk's spread over seeds 0-3 on the same artifact, on record and
+    # not held (seed 0 is the gate's walk above)
+    from pixelsynth_tpu_torch.tools.relay_walk_spread import walk_spread
+
+    spread = walk_spread(ckpt, spread_seeds, os.path.join(out_dir, "spread"), device=DEVICE)
+    for row in spread["rows"]:
+        log(f"[relay] walk seed {row['seed']}: gt {row['gt']!r}, adjacent "
+            f"{row['adjacent']!r} ({row['seconds']:.1f} s)")
+    log(f"[relay] walk seeds {list(spread_seeds)}: mean gt "
+        f"{spread['summary']['gt']['mean']!r}, mean adjacent "
+        f"{spread['summary']['adjacent']['mean']!r} (not held)")
+    with open(os.path.join(REPO, "evidence/torch/walk_parity/jax_cpu_spread.json")) as f:
+        jax_spread = json.load(f)["summary"]
+    log(f"[relay] the JAX package's walk at seeds 0-7 on the CPU: mean gt "
+        f"{jax_spread['gt']['mean']!r} (sd {jax_spread['gt']['sd']!r}), mean adjacent "
+        f"{jax_spread['adjacent']['mean']!r} (sd {jax_spread['adjacent']['sd']!r})")
     if got["n_pairs"] != n_pairs or got["n_consistency_items"] != consistency_items \
             or got["n_scene_views_scored"] != jax_report["n_scene_views_scored"]:
         raise AssertionError("the relay gate did not run at the report's sizes")

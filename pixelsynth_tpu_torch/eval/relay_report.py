@@ -178,12 +178,16 @@ def two_image_consistency(ps, batches: List[Dict], num_samples: int,
 
 
 def scene_walk_metrics(cfg, world: Dict, scene_dir: str,
-                       out_dir: Optional[str] = None) -> Dict[str, float]:
+                       out_dir: Optional[str] = None, *,
+                       per_view: bool = False) -> Dict[str, float]:
     """Metrics over the demo CLI's saved scene PNGs (<scene_dir>/scene/):
     exact-homography consistency of adjacent views of each direction, and
     PSNR against ground-truth renders of `world` at the same cameras, by
     numerator and by direction.  With out_dir, also writes
-    scene_strip.png: the even R and L views over their renders."""
+    scene_strip.png: the even R and L views over their renders.  With
+    per_view, also "scene_views": one row per scored view in walk order,
+    {"direction", "num", "gt", "adjacent"} (adjacent: against the view one
+    numerator lower in the same direction, None at numerator 1)."""
     P_in = demo_cameras(1.0)["P"][0]
     W = cfg.model.W
 
@@ -193,7 +197,7 @@ def scene_walk_metrics(cfg, world: Dict, scene_dir: str,
             return None
         return load_png(p)[..., :3].astype(np.float32) / 255.0
 
-    adj, gt_psnrs = [], []
+    adj, gt_psnrs, views = [], [], []
     by_num: Dict[int, List[float]] = {}
     by_dir: Dict[str, List[float]] = {}
     strip, strip_gt = [], []
@@ -212,8 +216,11 @@ def scene_walk_metrics(cfg, world: Dict, scene_dir: str,
             gt_psnrs.append(v)
             by_num.setdefault(i, []).append(v)
             by_dir.setdefault(direction, []).append(v)
+            a = None
             if prev is not None:
-                adj.append(consistency_exact(prev, img, prev_P, P_i)["PSNR_vis"])
+                a = consistency_exact(prev, img, prev_P, P_i)["PSNR_vis"]
+                adj.append(a)
+            views.append({"direction": direction, "num": i, "gt": v, "adjacent": a})
             if direction in ("R", "L") and i % 2 == 0:
                 strip.append((img * 255).astype(np.uint8))
                 strip_gt.append((_to01(gt) * 255).astype(np.uint8))
@@ -223,7 +230,7 @@ def scene_walk_metrics(cfg, world: Dict, scene_dir: str,
         save_png(os.path.join(out_dir, "scene_strip.png"),
                  np.concatenate([np.concatenate(strip, axis=1),
                                  np.concatenate(strip_gt, axis=1)], axis=0) / 255.0)
-    return {
+    out = {
         "scene_adjacent_consistency_psnr": float(np.mean(adj)) if adj else None,
         "scene_gt_psnr": float(np.mean(gt_psnrs)) if gt_psnrs else None,
         "scene_gt_psnr_by_numerator": {
@@ -231,6 +238,9 @@ def scene_walk_metrics(cfg, world: Dict, scene_dir: str,
         "scene_gt_psnr_by_direction": {k: float(np.mean(v)) for k, v in by_dir.items()},
         "n_scene_views_scored": len(gt_psnrs),
     }
+    if per_view:
+        out["scene_views"] = views
+    return out
 
 
 def build_report(ckpt: str, out_dir: str, *, device="cuda",

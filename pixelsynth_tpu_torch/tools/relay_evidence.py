@@ -177,7 +177,7 @@ def run(profile: str, workdir: str, out: str) -> Dict:
               f"{r['limit']!r}: {'holds' if r['holds'] else 'MISSES'}", flush=True)
 
     t0 = time.perf_counter()
-    spread = relay_walk_spread.walk_spread(npz, WALK_SEEDS,
+    spread = relay_walk_spread.walk_spread(npz, range(WALK_SEEDS),
                                            os.path.join(workdir, "walk_spread"))
     with open(os.path.join(out, "walk_spread.json"), "w") as f:
         json.dump(spread, f, indent=2)
